@@ -1,0 +1,672 @@
+// Flash-decode attention for Hopper (sm_90a): split-K, GQA-native,
+// per-row length masking, over a contiguous KV cache or a paged pool.
+//
+// Replaces the TPU kernels of paddle_tpu/pallas_kernels/decode_attention.py:
+//   _flash_decode        (contiguous cache, body _decode_kernel -> _cell_partial)
+//   _paged_flash_decode  (block-table pool, same body, table-resolved K/V)
+// in their causal, unquantized form.
+//
+// What it computes (the contract of _cell_partial and the XLA combine):
+//   query row r = i * group + g of kv head h is query token i of head
+//   h * group + g, at absolute position qpos = (len - q_len) + r / group,
+//   with len = min(pos + q_len, max_len). Key kpos is visible iff
+//   kpos <= qpos. Scores q.k * scale in fp32, masked scores -1e30,
+//   running max / sum / accumulator in fp32, output in q's dtype in the
+//   layout [B, q_len, H, D]. A row with no visible key returns zeros
+//   (l is clamped at 1e-30 in the merge).
+//
+// What bounds it: device-memory bytes. Decode (q_len 1) does 2 flops per
+// K/V element it reads, far below the ~295 flops/byte an H100 needs to
+// be compute-bound, so the floor is reading each valid K/V byte once.
+//
+// What the design does about that:
+//   - every block owns (KV split, query-row tile, batch
+//     row, kv head) and loops over its split's keys inside the block, so
+//     nothing is carried between blocks (a TPU grid ran its kv-block
+//     axis in order; Hopper runs blocks in no order);
+//   - the loop stops at the tile's last visible key, min(len, q_hi + 1):
+//     blocks past a row's own length, and keys past the causal edge of a
+//     prefill tile, are never read;
+//   - K/V rows are read once per (row tile, kv head) and serve the kv
+//     head's whole query group, so the GQA expansion never touches
+//     device memory. Two block bodies: for a bundle of at most 8 rows
+//     (the decode step) flash_decode_rows streams keys through all four
+//     warps with the head dimension split across lanes (coalesced row
+//     reads, no staging); for larger bundles (prefill chunks)
+//     flash_decode_partial stages 32-key chunks in shared memory with
+//     16-byte vector loads, tiles 64 query rows per block and
+//     register-tiles both products;
+//   - each split writes an (o, m, l) partial; a second small launch
+//     merges them with the log-sum-exp of decode_attention.py:505-509.
+// The arithmetic is plain fp32 FMA; wgmma / TMA are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int KB = 32;  // keys per shared-memory chunk: one per lane
+constexpr float kNegInf = -1e30f;
+
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void unpack(const uint4& u, float* out) {
+    out[0] = __uint_as_float(u.x);
+    out[1] = __uint_as_float(u.y);
+    out[2] = __uint_as_float(u.z);
+    out[3] = __uint_as_float(u.w);
+  }
+  __device__ static void store(float* dst, float x) { *dst = x; }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void unpack(const uint4& u, float* out) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static void store(__nv_bfloat16* dst, float x) {
+    *dst = __float2bfloat16(x);
+  }
+};
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <int BYTES>
+struct Raw;
+template <>
+struct Raw<4> {
+  using type = unsigned int;
+};
+template <>
+struct Raw<8> {
+  using type = uint2;
+};
+template <>
+struct Raw<16> {
+  using type = uint4;
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// E consecutive values at p (aligned to their size) as floats, one load.
+template <typename T, int E>
+__device__ __forceinline__ void load_vals(const T* p, float* out) {
+  using R = typename Raw<sizeof(T) * E>::type;
+  const R raw = *reinterpret_cast<const R*>(p);
+  const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int e = 0; e < E; ++e) out[e] = to_f(v[e]);
+}
+
+// Row index (in units of D elements) of key kpos of kv head kvh.
+// Contiguous: [B, max_len, KV, D]. Paged: [num_blocks, bs, KV, D], the
+// logical block resolved through bt [B, nb] with its column clamped to
+// nb - 1 as generation._paged_flat_indices clamps it.
+template <bool PAGED>
+__device__ __forceinline__ long long kv_row(int b, int kpos, int kvh, int KV,
+                                            int max_len, const int* bt,
+                                            int bs, int nb) {
+  if constexpr (PAGED) {
+    const int lb = min(kpos / bs, nb - 1);
+    const long long phys = bt[(long long)b * nb + lb];
+    return (phys * bs + kpos % bs) * KV + kvh;
+  } else {
+    return ((long long)b * max_len + kpos) * KV + kvh;
+  }
+}
+
+constexpr int ROWS = 64;  // query rows per block of flash_decode_partial
+constexpr int PS = KB + 1;  // padded row of the probability tile
+
+template <int D>
+constexpr size_t partial_smem_bytes() {
+  return sizeof(float) *
+         (ROWS * (D + 1) + 2 * KB * (D + 1) + ROWS * PS + 3 * ROWS);
+}
+
+// One (split, row tile, batch row * KV + kv head) block: the online-
+// softmax partial of up to ROWS query rows over the split's visible keys,
+// 32 keys at a time through shared memory. Both products are register-
+// tiled: a thread scores 4 rows x 4 keys and accumulates 8 rows x D/16
+// columns, so each shared-memory read feeds several FMAs.
+template <typename T, int D, bool PAGED>
+__global__ void __launch_bounds__(kThreads)
+    flash_decode_partial(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const int* __restrict__ pos,
+                         const int* __restrict__ bt,
+                         float* __restrict__ o_part,
+                         float* __restrict__ m_part,
+                         float* __restrict__ l_part, int q_len, int H, int KV,
+                         int max_len, int bs, int nb, int split_keys,
+                         float scale) {
+  constexpr int VN = Vec<T>::N;
+  constexpr int DV = D / VN;  // 16-byte vectors per row
+  constexpr int KS = D + 1;   // padded smem row: conflict-free across lanes
+  // scores: 4 rows x KT keys per thread; KG lanes share one row group
+  constexpr int KT = ROWS * KB / (kThreads * 4);
+  constexpr int KG = KB / KT;
+  // accumulator: RA rows x CA columns per thread (columns strided by CG)
+  constexpr int CG = 16;
+  constexpr int RA = ROWS * CG / kThreads;
+  constexpr int CA = D / CG;
+  static_assert(KG <= 32 && 32 % KG == 0, "a row group lives in one warp");
+  static_assert(RA * (kThreads / CG) == ROWS, "accumulator tiling");
+
+  extern __shared__ float smem[];
+  float* sQ = smem;              // [ROWS][KS]
+  float* sK = sQ + ROWS * KS;    // [KB][KS]
+  float* sV = sK + KB * KS;      // [KB][KS]
+  float* sP = sV + KB * KS;      // [ROWS][PS] this chunk's probabilities
+  float* sM = sP + ROWS * PS;    // [ROWS] running max
+  float* sL = sM + ROWS;         // [ROWS] running sum
+  float* sA = sL + ROWS;         // [ROWS] this chunk's rescale factor
+
+  const int tid = threadIdx.x;
+  const int split = blockIdx.x;
+  const int n_split = gridDim.x;
+  const int row0 = blockIdx.y * ROWS;
+  const int bk = blockIdx.z;
+  const int b = bk / KV;
+  const int kvh = bk % KV;
+  const int group = H / KV;
+  const int gq = q_len * group;
+  const int nr = min(ROWS, gq - row0);
+  const int len = min(pos[b] + q_len, max_len);
+  const int qbase = len - q_len;  // absolute position of bundle token 0
+  const int q_hi = qbase + (row0 + nr - 1) / group;
+  const int k_begin = split * split_keys;
+  const int k_end = min(min(k_begin + split_keys, len), q_hi + 1);
+  const long long part = ((long long)bk * n_split + split) * gq + row0;
+
+  if (k_begin >= k_end) {
+    // nothing visible in this split: the skip partial (acc 0, m -1e30,
+    // l 0) contributes exact zeros to the merge
+    for (int idx = tid; idx < nr * D; idx += kThreads)
+      o_part[part * D + idx] = 0.f;
+    for (int r = tid; r < nr; r += kThreads) {
+      m_part[part + r] = kNegInf;
+      l_part[part + r] = 0.f;
+    }
+    return;
+  }
+
+  for (int idx = tid; idx < ROWS * DV; idx += kThreads) {
+    const int r = idx / DV;
+    const int c = (idx % DV) * VN;
+    float f[VN];
+    if (r < nr) {
+      const int row = row0 + r;
+      const int i = row / group;
+      const int g = row % group;
+      const T* src = q + (((long long)b * q_len + i) * H + kvh * group + g) * D + c;
+      Vec<T>::unpack(*reinterpret_cast<const uint4*>(src), f);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VN; ++e) f[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < VN; ++e) sQ[r * KS + c + e] = f[e];
+  }
+  for (int r = tid; r < ROWS; r += kThreads) {
+    sM[r] = kNegInf;
+    sL[r] = 0.f;
+  }
+
+  const int rg = tid / KG;  // score tile: rows rg*4 .. rg*4+3
+  const int kg = tid % KG;  //             keys kg + KG*w
+  const int ra = tid / CG;  // accumulator tile: rows ra*RA ..
+  const int cg = tid % CG;  //                   columns cg + CG*e
+  float acc[RA][CA];
+#pragma unroll
+  for (int i = 0; i < RA; ++i)
+#pragma unroll
+    for (int e = 0; e < CA; ++e) acc[i][e] = 0.f;
+
+  for (int kc = k_begin; kc < k_end; kc += KB) {
+    const int kbv = min(KB, k_end - kc);
+    __syncthreads();  // previous chunk's readers are done with sK/sV/sP
+
+    for (int idx = tid; idx < KB * DV; idx += kThreads) {
+      const int j = idx / DV;
+      const int c = (idx % DV) * VN;
+      float fk[VN], fv[VN];
+      if (j < kbv) {
+        const long long off =
+            kv_row<PAGED>(b, kc + j, kvh, KV, max_len, bt, bs, nb) * D + c;
+        Vec<T>::unpack(*reinterpret_cast<const uint4*>(k + off), fk);
+        Vec<T>::unpack(*reinterpret_cast<const uint4*>(v + off), fv);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VN; ++e) fk[e] = fv[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < VN; ++e) {
+        sK[j * KS + c + e] = fk[e];
+        sV[j * KS + c + e] = fv[e];
+      }
+    }
+    __syncthreads();
+
+    // scores of this thread's 4 x KT tile
+    float s[4][KT];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int w = 0; w < KT; ++w) s[u][w] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; ++c) {
+      float qx[4], kx[KT];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) qx[u] = sQ[(rg * 4 + u) * KS + c];
+#pragma unroll
+      for (int w = 0; w < KT; ++w) kx[w] = sK[(kg + KG * w) * KS + c];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int w = 0; w < KT; ++w) s[u][w] = fmaf(qx[u], kx[w], s[u][w]);
+    }
+    // online softmax per row, reduced over the KG lanes of the row group
+    // (every lane takes part in the shuffles; rows past nr stay masked)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = rg * 4 + u;
+      const int qpos = qbase + (row0 + r) / group;
+      bool vis[KT];
+      float mx = kNegInf;
+#pragma unroll
+      for (int w = 0; w < KT; ++w) {
+        const int j = kg + KG * w;
+        vis[w] = r < nr && j < kbv && kc + j <= qpos;
+        s[u][w] = vis[w] ? s[u][w] * scale : kNegInf;
+        mx = fmaxf(mx, s[u][w]);
+      }
+#pragma unroll
+      for (int o = KG / 2; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_old = sM[r];
+      const float m_new = fmaxf(m_old, mx);
+      float ps = 0.f;
+#pragma unroll
+      for (int w = 0; w < KT; ++w) {
+        const float p = vis[w] ? expf(s[u][w] - m_new) : 0.f;
+        sP[r * PS + kg + KG * w] = p;
+        ps += p;
+      }
+#pragma unroll
+      for (int o = KG / 2; o > 0; o >>= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, o);
+      __syncwarp();
+      if (kg == 0) {
+        const float alpha = expf(m_old - m_new);
+        sM[r] = m_new;
+        sL[r] = sL[r] * alpha + ps;
+        sA[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // rescale and accumulate this thread's RA x CA tile of P @ V
+#pragma unroll
+    for (int i = 0; i < RA; ++i) {
+      const float a = sA[ra * RA + i];
+#pragma unroll
+      for (int e = 0; e < CA; ++e) acc[i][e] *= a;
+    }
+    for (int j = 0; j < kbv; ++j) {
+      float px[RA], vx[CA];
+#pragma unroll
+      for (int i = 0; i < RA; ++i) px[i] = sP[(ra * RA + i) * PS + j];
+#pragma unroll
+      for (int e = 0; e < CA; ++e) vx[e] = sV[j * KS + cg + CG * e];
+#pragma unroll
+      for (int i = 0; i < RA; ++i)
+#pragma unroll
+        for (int e = 0; e < CA; ++e) acc[i][e] = fmaf(px[i], vx[e], acc[i][e]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RA; ++i) {
+    const int r = ra * RA + i;
+    if (r < nr) {
+#pragma unroll
+      for (int e = 0; e < CA; ++e)
+        o_part[(part + r) * D + cg + CG * e] = acc[i][e];
+    }
+  }
+  for (int r = tid; r < nr; r += kThreads) {
+    m_part[part + r] = sM[r];
+    l_part[part + r] = sL[r];
+  }
+}
+
+// Decode variant for bundles of at most SR query rows per kv head (the
+// decode step: q_len 1 times the group). One block of four warps per
+// (split, b * KV + kvh). Each warp streams its own share of the split's
+// keys, U at a time; its lanes split the head dimension (D / 32 values
+// each), so a K or V row is one coalesced read per warp and is never
+// staged in shared memory, and every warp works even for one query row.
+// The four warps' (m, l, acc) merge through shared memory into the same
+// partial layout as flash_decode_partial.
+template <typename T, int D, int SR, bool PAGED>
+__global__ void __launch_bounds__(kThreads)
+    flash_decode_rows(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const int* __restrict__ pos,
+                      const int* __restrict__ bt, float* __restrict__ o_part,
+                      float* __restrict__ m_part, float* __restrict__ l_part,
+                      int q_len, int H, int KV, int max_len, int bs, int nb,
+                      int split_keys, float scale) {
+  constexpr int E = D / 32;             // values per lane
+  constexpr int U = SR <= 2 ? 8 : 4;    // keys in flight per warp step
+  __shared__ float sM[kWarps][SR];
+  __shared__ float sL[kWarps][SR];
+  __shared__ float sAcc[kWarps][SR][D];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int split = blockIdx.x;
+  const int n_split = gridDim.x;
+  const int bk = blockIdx.z;
+  const int b = bk / KV;
+  const int kvh = bk % KV;
+  const int group = H / KV;
+  const int gq = q_len * group;  // <= SR
+  const int len = min(pos[b] + q_len, max_len);
+  const int qbase = len - q_len;
+  const int q_hi = qbase + (gq - 1) / group;
+  const int k_begin = split * split_keys;
+  const int k_end = min(min(k_begin + split_keys, len), q_hi + 1);
+  const long long part = ((long long)bk * n_split + split) * gq;
+
+  if (k_begin >= k_end) {
+    for (int idx = tid; idx < gq * D; idx += kThreads)
+      o_part[part * D + idx] = 0.f;
+    for (int r = tid; r < gq; r += kThreads) {
+      m_part[part + r] = kNegInf;
+      l_part[part + r] = 0.f;
+    }
+    return;
+  }
+
+  float qv[SR][E], acc[SR][E], m[SR], l[SR];
+#pragma unroll
+  for (int r = 0; r < SR; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) qv[r][e] = acc[r][e] = 0.f;
+    if (r < gq) {
+      const int i = r / group;
+      const int g = r % group;
+      load_vals<T, E>(
+          q + (((long long)b * q_len + i) * H + kvh * group + g) * D + lane * E,
+          qv[r]);
+    }
+  }
+
+  for (int kc = k_begin + warp * U; kc < k_end; kc += kWarps * U) {
+    float kx[U][E], vx[U][E];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (kc + u < k_end) {
+        const long long off =
+            kv_row<PAGED>(b, kc + u, kvh, KV, max_len, bt, bs, nb) * D +
+            lane * E;
+        load_vals<T, E>(k + off, kx[u]);
+        load_vals<T, E>(v + off, vx[u]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) kx[u][e] = vx[u][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < SR; ++r) {
+      if (r < gq) {
+        const int qpos = qbase + r / group;
+        float sc[U];
+        float mx = m[r];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < E; ++e) dot = fmaf(qv[r][e], kx[u][e], dot);
+          dot = warp_sum(dot);
+          const bool vis = kc + u < k_end && kc + u <= qpos;
+          sc[u] = vis ? dot * scale : kNegInf;
+          mx = fmaxf(mx, sc[u]);
+        }
+        const float alpha = expf(m[r] - mx);
+        float ps = 0.f;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const bool vis = kc + u < k_end && kc + u <= qpos;
+          sc[u] = vis ? expf(sc[u] - mx) : 0.f;
+          ps += sc[u];
+        }
+        l[r] = l[r] * alpha + ps;
+        m[r] = mx;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          float a = acc[r][e] * alpha;
+#pragma unroll
+          for (int u = 0; u < U; ++u) a = fmaf(sc[u], vx[u][e], a);
+          acc[r][e] = a;
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < SR; ++r) {
+    if (r < gq) {
+      if (lane == 0) {
+        sM[warp][r] = m[r];
+        sL[warp][r] = l[r];
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) sAcc[warp][r][lane * E + e] = acc[r][e];
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < gq * D; idx += kThreads) {
+    const int r = idx / D;
+    const int c = idx % D;
+    float mt = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mt = fmaxf(mt, sM[w][r]);
+    float lt = 0.f, at = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(sM[w][r] - mt);
+      lt += sL[w][r] * f;
+      at += sAcc[w][r][c] * f;
+    }
+    o_part[(part + r) * D + c] = at;
+    if (c == 0) {
+      m_part[part + r] = mt;
+      l_part[part + r] = lt;
+    }
+  }
+}
+
+// Log-sum-exp merge of the splits' partials for one (row, b * KV + kvh),
+// written in q's dtype at [b, i, kvh * group + g, :].
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_decode_merge(const float* __restrict__ o_part,
+                       const float* __restrict__ m_part,
+                       const float* __restrict__ l_part, T* __restrict__ out,
+                       int q_len, int H, int KV, int n_split) {
+  const int group = H / KV;
+  const int gq = q_len * group;
+  const int row = blockIdx.x;
+  const int bk = blockIdx.y;
+  const int b = bk / KV;
+  const int kvh = bk % KV;
+  const int i = row / group;
+  const int g = row % group;
+  float m_tot = kNegInf;
+  for (int s = 0; s < n_split; ++s)
+    m_tot = fmaxf(m_tot, m_part[((long long)bk * n_split + s) * gq + row]);
+  T* dst = out + (((long long)b * q_len + i) * H + kvh * group + g) * D;
+  for (int c = threadIdx.x; c < D; c += kThreads) {
+    float l = 0.f, a = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const long long idx = ((long long)bk * n_split + s) * gq + row;
+      const float w = expf(m_part[idx] - m_tot);
+      l += l_part[idx] * w;
+      a += o_part[idx * D + c] * w;
+    }
+    Vec<T>::store(dst + c, a / fmaxf(l, 1e-30f));
+  }
+}
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* pos;
+  const int* bt;
+  float* o_part;
+  float* m_part;
+  float* l_part;
+  void* out;
+  int B, q_len, H, KV, max_len, bs, nb, n_split, split_keys;
+  float scale;
+};
+
+template <typename T, int D, bool PAGED>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = partial_smem_bytes<D>();
+  auto kern = flash_decode_partial<T, D, PAGED>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const int gq = a.q_len * (a.H / a.KV);
+  const dim3 grid(a.n_split, (gq + ROWS - 1) / ROWS, a.B * a.KV);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.pos, a.bt, a.o_part, a.m_part, a.l_part,
+      a.q_len, a.H, a.KV, a.max_len, a.bs, a.nb, a.split_keys, a.scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_decode_merge<T, D><<<dim3(gq, a.B * a.KV), kThreads, 0, stream>>>(
+      a.o_part, a.m_part, a.l_part, static_cast<T*>(a.out), a.q_len, a.H,
+      a.KV, a.n_split);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, int SR, bool PAGED>
+cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
+  const int gq = a.q_len * (a.H / a.KV);
+  if (gq > SR) return cudaErrorInvalidValue;
+  const dim3 grid(a.n_split, 1, a.B * a.KV);
+  flash_decode_rows<T, D, SR, PAGED><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.pos, a.bt, a.o_part, a.m_part, a.l_part,
+      a.q_len, a.H, a.KV, a.max_len, a.bs, a.nb, a.split_keys, a.scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_decode_merge<T, D><<<dim3(gq, a.B * a.KV), kThreads, 0, stream>>>(
+      a.o_part, a.m_part, a.l_part, static_cast<T*>(a.out), a.q_len, a.H,
+      a.KV, a.n_split);
+  return cudaGetLastError();
+}
+
+// rows 1, 2, 4, 8: the small-bundle kernel (one tile); 64: the tiled
+// kernel (ROWS query rows per block)
+template <typename T, int D, bool PAGED>
+cudaError_t by_rows(const Args& a, int rows, cudaStream_t stream) {
+  if (rows == 1) return launch_rows<T, D, 1, PAGED>(a, stream);
+  if (rows == 2) return launch_rows<T, D, 2, PAGED>(a, stream);
+  if (rows == 4) return launch_rows<T, D, 4, PAGED>(a, stream);
+  if (rows == 8) return launch_rows<T, D, 8, PAGED>(a, stream);
+  if (rows == ROWS) return launch<T, D, PAGED>(a, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, bool PAGED>
+cudaError_t by_dim(const Args& a, int D, int rows, cudaStream_t stream) {
+  if (D == 64) return by_rows<T, 64, PAGED>(a, rows, stream);
+  if (D == 128) return by_rows<T, 128, PAGED>(a, rows, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Plain C entry for ctypes. bt == nullptr selects the contiguous cache
+// [B, max_len, KV, D]; otherwise k/v are pools [num_blocks, bs, KV, D]
+// addressed through bt [B, nb] and max_len must equal nb * bs.
+// o_part [B*KV, n_split, gq, D], m_part/l_part [B*KV, n_split, gq] are
+// fp32 scratch owned by the caller. Returns the cudaError_t of the
+// launches (0 = both were accepted).
+extern "C" int paddle_flash_decode(const void* q, const void* k, const void* v,
+                                   const void* pos, const void* bt,
+                                   void* o_part, void* m_part, void* l_part,
+                                   void* out, int is_bf16, int B, int q_len,
+                                   int H, int KV, int D, int max_len, int bs,
+                                   int nb, int n_split, int split_keys,
+                                   int rows, float scale, void* stream) {
+  Args a{q,
+         k,
+         v,
+         static_cast<const int*>(pos),
+         static_cast<const int*>(bt),
+         static_cast<float*>(o_part),
+         static_cast<float*>(m_part),
+         static_cast<float*>(l_part),
+         out,
+         B,
+         q_len,
+         H,
+         KV,
+         max_len,
+         bs,
+         nb,
+         n_split,
+         split_keys,
+         scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool paged = bt != nullptr;
+  cudaError_t e;
+  if (is_bf16)
+    e = paged ? by_dim<__nv_bfloat16, true>(a, D, rows, st)
+              : by_dim<__nv_bfloat16, false>(a, D, rows, st);
+  else
+    e = paged ? by_dim<float, true>(a, D, rows, st)
+              : by_dim<float, false>(a, D, rows, st);
+  return static_cast<int>(e);
+}

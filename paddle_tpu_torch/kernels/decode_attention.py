@@ -1,0 +1,295 @@
+"""Flash-decode attention: split-K, GQA-native, per-row length masking
+(counterpart of ``paddle_tpu/pallas_kernels/decode_attention.py``).
+
+Two entry points, each a thin wrapper over one hand-written CUDA
+kernel (``csrc/decode_attention.cu``) with a plain PyTorch version
+beside it:
+
+- ``flash_decode_attention`` over the contiguous [B, max_len, KV, d]
+  caches (the ``generate`` decode step, q_len <= ``MAX_DECODE_Q_LEN``);
+- ``paged_flash_decode_attention`` over [num_blocks, bs, KV, d] pools
+  addressed through per-row block tables (the serving engine's decode
+  step and every chunked-prefill bundle, q_len <= ``MAX_PAGED_Q_LEN``).
+
+A wrapper takes its plain version only for tensors on the CPU. For CUDA
+tensors it launches the kernel or raises; there is no fallback. Each
+wrapper counts its launches in ``LAUNCHES``.
+
+``decode_dispatch`` / ``paged_decode_dispatch`` keep the JAX package's
+gates (external mask, q_len, dtype, grad mode): a declined call runs
+the plain attention math exactly where the JAX package runs XLA, and
+the reason is counted in ``DISPATCH_FALLBACKS``.
+"""
+
+from __future__ import annotations
+
+import math
+from collections import Counter
+
+import torch
+
+from ._blocks import pick_block
+from ._build import load_library
+
+__all__ = ["flash_decode_attention", "flash_decode_attention_ref",
+           "paged_flash_decode_attention", "paged_flash_decode_attention_ref",
+           "decode_dispatch", "paged_decode_dispatch", "MAX_DECODE_Q_LEN",
+           "MAX_PAGED_Q_LEN", "LAUNCHES", "DISPATCH_HITS",
+           "DISPATCH_FALLBACKS", "reset_counters"]
+
+# the contiguous kernel serves the short-query decode window; longer
+# prompts go to the plain attention (XLA in the JAX package)
+MAX_DECODE_Q_LEN = 8
+
+# the paged kernel also serves chunked-prefill bundles
+MAX_PAGED_Q_LEN = 256
+
+NEG_INF = -1e30
+
+# keys per shared-memory chunk inside the kernel (csrc KB)
+_KEYS_PER_CHUNK = 32
+
+LAUNCHES = {"flash_decode_attention": 0, "paged_flash_decode_attention": 0}
+DISPATCH_HITS: Counter = Counter()
+DISPATCH_FALLBACKS: Counter = Counter()
+
+
+def reset_counters() -> None:
+    """Zero the launch counts and the dispatch hit/fallback counters."""
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    DISPATCH_HITS.clear()
+    DISPATCH_FALLBACKS.clear()
+
+
+def _decline_reason(q_len: int, limit: int, has_mask: bool, dtype):
+    if has_mask:
+        # the caller brought its own attention mask: the kernel's
+        # masking is position-derived only
+        return "external_mask"
+    if q_len > limit:
+        return "q_len"
+    if dtype not in (torch.float32, torch.bfloat16):
+        return "dtype"
+    if torch.is_grad_enabled():
+        # forward-only kernel (decode is inference)
+        return "grad_mode"
+    return None
+
+
+def decode_dispatch(model: str, *, q_len: int, has_mask: bool,
+                    dtype) -> bool:
+    """True -> run ``flash_decode_attention``; False -> the plain
+    attention, with the reason counted."""
+    reason = _decline_reason(q_len, MAX_DECODE_Q_LEN, has_mask, dtype)
+    if reason is None:
+        DISPATCH_HITS[model] += 1
+        return True
+    DISPATCH_FALLBACKS[reason] += 1
+    return False
+
+
+def paged_decode_dispatch(model: str, *, q_len: int, has_mask: bool,
+                          dtype) -> bool:
+    """``decode_dispatch`` for the paged decode / chunk-prefill path: the
+    query window covers the prefill chunk (``MAX_PAGED_Q_LEN``), and
+    outcomes count under ``<model>_paged`` / ``paged_<reason>``."""
+    reason = _decline_reason(q_len, MAX_PAGED_Q_LEN, has_mask, dtype)
+    if reason is None:
+        DISPATCH_HITS[model + "_paged"] += 1
+        return True
+    DISPATCH_FALLBACKS["paged_" + reason] += 1
+    return False
+
+
+def _positions(positions, B: int, device) -> torch.Tensor:
+    """Per-row int32 [B] positions from an int, a 0-d or a [B] tensor."""
+    if isinstance(positions, torch.Tensor):
+        p = positions.to(device=device, dtype=torch.int32)
+        if p.dim() == 0:
+            p = p.expand(B)
+        return p.contiguous()
+    return torch.full((B,), int(positions), dtype=torch.int32, device=device)
+
+
+def _check_heads(q, kv_heads: int) -> int:
+    H = q.shape[2]
+    if H % kv_heads:
+        raise ValueError(f"heads ({H}) not a multiple of kv_heads ({kv_heads})")
+    return H // kv_heads
+
+
+def _attend_ref(q, kc, vc, lens, scale: float):
+    """Plain masked softmax attention of the query bundle over a
+    contiguous view [B, T, KV, d]; row r = i*group + g of kv head h sits
+    at position (len - q_len) + r // group and sees keys kpos <= it."""
+    B, q_len, H, d = q.shape
+    T, KV = kc.shape[1], kc.shape[2]
+    group = H // KV
+    gq = q_len * group
+    qf = q.float().reshape(B, q_len, KV, group, d).permute(0, 2, 1, 3, 4) \
+        .reshape(B, KV, gq, d)
+    kf = kc.float().permute(0, 2, 1, 3)
+    vf = vc.float().permute(0, 2, 1, 3)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale      # [B, KV, gq, T]
+    rows = torch.arange(gq, device=q.device) // group
+    qpos = (lens.long() - q_len)[:, None] + rows[None, :]   # [B, gq]
+    kpos = torch.arange(T, device=q.device)
+    vis = (kpos[None, None, :] <= qpos[:, :, None])[:, None]  # [B, 1, gq, T]
+    s = s.masked_fill(~vis, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(vis, torch.exp(s - m), torch.zeros((), device=q.device))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p, vf) / l.clamp_min(1e-30)
+    o = o.reshape(B, KV, q_len, group, d).permute(0, 2, 1, 3, 4) \
+        .reshape(B, q_len, H, d)
+    return o.to(q.dtype)
+
+
+def flash_decode_attention_ref(q, k_cache, v_cache, positions,
+                               sm_scale=None):
+    """Plain PyTorch version of ``flash_decode_attention``."""
+    B, q_len, _, d = q.shape
+    _check_heads(q, k_cache.shape[2])
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    pos = _positions(positions, B, q.device)
+    lens = torch.clamp(pos + q_len, max=k_cache.shape[1])
+    return _attend_ref(q, k_cache, v_cache, lens, scale)
+
+
+def paged_flash_decode_attention_ref(q, k_pool, v_pool, block_table,
+                                     positions, sm_scale=None):
+    """Plain PyTorch version of ``paged_flash_decode_attention``: gather
+    the rows' blocks into a contiguous view, then attend."""
+    B, q_len, _, d = q.shape
+    _check_heads(q, k_pool.shape[2])
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    bt = block_table.to(device=q.device).long()
+    nb, bs = bt.shape[1], k_pool.shape[1]
+    kc = k_pool[bt].reshape((B, nb * bs) + tuple(k_pool.shape[2:]))
+    vc = v_pool[bt].reshape((B, nb * bs) + tuple(v_pool.shape[2:]))
+    pos = _positions(positions, B, q.device)
+    lens = torch.clamp(pos + q_len, max=nb * bs)
+    return _attend_ref(q, kc, vc, lens, scale)
+
+
+_SM_COUNT: dict = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx) \
+            .multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def _launch(name: str, q, k, v, pos, bt, max_len: int, bs: int, nb: int,
+            scale: float):
+    """Validate, size the split, allocate partials and launch the CUDA
+    kernel pair (partials + merge) on the current stream."""
+    B, q_len, H, d = q.shape
+    KV = k.shape[2]
+    group = _check_heads(q, KV)
+    tensors = [q, k, v, pos] + ([bt] if bt is not None else [])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: all inputs must be on {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q/k/v must share float32 or bfloat16, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if d not in (64, 128):
+        raise ValueError(f"{name}: head_dim {d} not built (64 or 128)")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if any((t.data_ptr() % 16) for t in (q, k, v)):
+        raise ValueError(f"{name}: q/k/v must be 16-byte aligned")
+    if pos.dtype != torch.int32 or (bt is not None
+                                    and bt.dtype != torch.int32):
+        raise TypeError(f"{name}: positions and block table must be int32")
+    gq = q_len * group
+    if gq <= 8:
+        # small bundle (decode): one block streams keys through all warps
+        rows, tiles, fill = 1 << (gq - 1).bit_length(), 1, 4
+    else:
+        rows = 64
+        tiles, fill = -(-gq // rows), 2
+    # enough (split, tile, row, kv head) blocks to fill every SM `fill`
+    # times; splits tile the key range exactly (power-of-two chunk counts)
+    n_chunks = -(-max_len // _KEYS_PER_CHUNK)
+    want_splits = max(1, -(-fill * _sm_count(q.device) // (B * KV * tiles)))
+    per = max(1, n_chunks // want_splits)
+    per = pick_block(n_chunks, 1 << (per.bit_length() - 1))
+    n_split = -(-n_chunks // per)
+    split_keys = per * _KEYS_PER_CHUNK
+    o_part = torch.empty((B * KV, n_split, gq, d), dtype=torch.float32,
+                         device=q.device)
+    m_part = torch.empty((B * KV, n_split, gq), dtype=torch.float32,
+                         device=q.device)
+    l_part = torch.empty_like(m_part)
+    out = torch.empty_like(q)
+    lib = load_library("decode_attention.cu")
+    rc = lib.paddle_flash_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        bt.data_ptr() if bt is not None else None,
+        o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+        out.data_ptr(), int(q.dtype == torch.bfloat16), B, q_len, H, KV, d,
+        max_len, bs, nb, n_split, split_keys, rows, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
+    LAUNCHES[name] += 1
+    return out
+
+
+def flash_decode_attention(q, k_cache, v_cache, positions, sm_scale=None):
+    """Flash-decode attention over the contiguous KV caches.
+
+    q: [B, q_len, heads, d]; k_cache/v_cache: [B, max_len, kv_heads, d]
+    with this step's tokens ALREADY written at [pos, pos + q_len);
+    ``positions``: int or per-row [B] tensor. Query i of row b sits at
+    position positions[b] + i and attends cache positions <= it; query
+    head j reads kv head j // (heads // kv_heads). Returns
+    [B, q_len, heads, d] in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_decode_attention_ref(q, k_cache, v_cache, positions,
+                                          sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_attention: unsupported device "
+                         f"{q.device}")
+    B, _, _, d = q.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    pos = _positions(positions, B, q.device)
+    max_len = k_cache.shape[1]
+    return _launch("flash_decode_attention", q, k_cache, v_cache, pos, None,
+                   max_len, 1, 1, scale)
+
+
+def paged_flash_decode_attention(q, k_pool, v_pool, block_table, positions,
+                                 sm_scale=None):
+    """Flash-decode attention over PAGED KV pools.
+
+    q: [B, q_len, heads, d] (a decode step or one chunked-prefill
+    bundle); k_pool/v_pool: [num_blocks, block_size, kv_heads, d] with
+    this step's tokens already scattered (``paged_kv_cache_write``);
+    ``block_table``: [B, nb] int32, row b's logical block j lives in pool
+    block ``block_table[b, j]``; ``positions`` as in
+    ``flash_decode_attention``, with max_len = nb * block_size."""
+    if q.device.type == "cpu":
+        return paged_flash_decode_attention_ref(q, k_pool, v_pool,
+                                                block_table, positions,
+                                                sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_decode_attention: unsupported device "
+                         f"{q.device}")
+    B, _, _, d = q.shape
+    if block_table.dim() != 2 or block_table.shape[0] != B:
+        raise ValueError(f"block_table must be [B={B}, nb], got "
+                         f"{tuple(block_table.shape)}")
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    pos = _positions(positions, B, q.device)
+    bt = block_table.to(device=q.device, dtype=torch.int32).contiguous()
+    nb, bs = bt.shape[1], k_pool.shape[1]
+    return _launch("paged_flash_decode_attention", q, k_pool, v_pool, pos,
+                   bt, nb * bs, bs, nb, scale)

@@ -1,0 +1,43 @@
+"""Carry weights from the JAX package's Llama into the port.
+
+The JAX model's ``{k: np.asarray(v._data) for k, v in
+model.state_dict().items()}`` uses the same key names as the port. Its
+``nn.Linear`` stores ``[in, out]``; torch stores ``[out, in]``, so every
+``*_proj.weight`` and ``lm_head.weight`` is transposed on the way in
+(the reverse of the JAX package's ``convert_hf_llama_state_dict``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["load_paddle_tpu_state"]
+
+
+def _is_linear_weight(name: str) -> bool:
+    return name.endswith("_proj.weight") or name == "lm_head.weight"
+
+
+def load_paddle_tpu_state(model: torch.nn.Module, state: dict):
+    """Copy ``state`` (name -> numpy array) into ``model`` in place.
+    Raises ``ValueError`` on a missing or leftover key or on a shape
+    that does not match; returns the model."""
+    own = model.state_dict()
+    missing = sorted(set(own) - set(state))
+    leftover = sorted(set(state) - set(own))
+    if missing or leftover:
+        raise ValueError(f"state dict mismatch: missing {missing}, "
+                         f"leftover {leftover}")
+    with torch.no_grad():
+        for name, dst in own.items():
+            arr = np.asarray(state[name])
+            if arr.dtype.kind not in "fiub":   # e.g. ml_dtypes bfloat16
+                arr = arr.astype(np.float32)
+            if _is_linear_weight(name) and arr.ndim == 2:
+                arr = arr.T
+            if tuple(arr.shape) != tuple(dst.shape):
+                raise ValueError(f"{name}: shape {tuple(arr.shape)} does not "
+                                 f"match {tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(np.array(arr)))
+    return model

@@ -1,0 +1,349 @@
+"""Llama in PyTorch (counterpart of ``paddle_tpu/models/llama.py``).
+
+The same module tree and parameter names as the JAX model, so one
+numpy state dict loads into both (``models.convert``). Linear weights
+are torch's ``[out, in]``; the JAX package stores ``[in, out]``.
+
+Attention has the two branches the serving slice needs:
+- static KV caches (a dict per layer, contiguous or paged): the step's
+  k/v are written in place, then the flash-decode kernels run when
+  ``decode_dispatch`` / ``paged_decode_dispatch`` accept the call, and
+  the plain grouped attention over the masked cache runs where they
+  decline (where the JAX package runs XLA);
+- no cache: plain causal attention over the sequence.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import resolve_device
+from ..generation import update_static_kv_cache
+from ..kernels.decode_attention import (decode_dispatch,
+                                        flash_decode_attention,
+                                        paged_decode_dispatch,
+                                        paged_flash_decode_attention)
+
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
+           "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP", "RMSNorm",
+           "apply_rotary_pos_emb", "rope_factors",
+           "scaled_dot_product_attention",
+           "grouped_query_sdpa"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    dtype: str = "float32"
+
+    @staticmethod
+    def llama2_7b(**overrides):
+        cfg = LlamaConfig()
+        for k, v in overrides.items():
+            setattr(cfg, k, v)
+        return cfg
+
+    @staticmethod
+    def tiny(**overrides):
+        cfg = LlamaConfig(vocab_size=256, hidden_size=64, intermediate_size=128,
+                          num_hidden_layers=2, num_attention_heads=4,
+                          num_key_value_heads=2, max_position_embeddings=128)
+        for k, v in overrides.items():
+            setattr(cfg, k, v)
+        return cfg
+
+
+def _rope_tables(head_dim: int, max_pos: int, theta: float):
+    """fp32 [max_pos, head_dim / 2] cos and sin tables."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2,
+                                             dtype=torch.float32) / head_dim))
+    t = torch.arange(max_pos, dtype=torch.float32)
+    freqs = torch.outer(t, inv_freq)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def _rope_index(position_offset, b: int, s: int, max_pos: int, device):
+    """[b, s] (or [s]) table rows for an int, 0-d, [b] or [b, s] offset.
+    Rows past the table clamp to its last entry: only the pad tokens of
+    a final prefill chunk can reach them, and their outputs are unused."""
+    if isinstance(position_offset, torch.Tensor) and position_offset.dim() == 2:
+        return position_offset.long()
+    ar = torch.arange(s, device=device)
+    if isinstance(position_offset, torch.Tensor) and position_offset.dim() == 1:
+        idx = position_offset.to(device).long()[:, None] + ar[None, :]
+    else:
+        idx = ar + int(position_offset)
+    return idx.clamp(max=max_pos - 1)
+
+
+def rope_factors(cos_tab, sin_tab, position_offset, b: int, s: int, dtype):
+    """The rotation's cos and sin rows for ``s`` tokens at
+    ``position_offset`` (an int, a per-row [b] tensor such as the serving
+    decode step's slot positions, or an explicit [b, s] grid), shaped
+    [b or 1, s, 1, d/2] and cast from the fp32 tables to ``dtype``. The
+    model computes them once per forward and every layer reuses them."""
+    idx = _rope_index(position_offset, b, s, cos_tab.shape[0], cos_tab.device)
+    c, si = cos_tab[idx], sin_tab[idx]
+    if c.dim() == 3:   # per-row [b, s, d/2]
+        return c[:, :, None, :].to(dtype), si[:, :, None, :].to(dtype)
+    return c[None, :, None, :].to(dtype), si[None, :, None, :].to(dtype)
+
+
+def _rotate(x, c, si):
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * c - x2 * si, x2 * c + x1 * si], dim=-1)
+
+
+def apply_rotary_pos_emb(q, k, cos_tab, sin_tab, position_offset=0):
+    """Rotary embedding on [b, s, h, d] tensors, half-split convention,
+    applied in the activation dtype (see ``rope_factors``)."""
+    c, si = rope_factors(cos_tab, sin_tab, position_offset, q.shape[0],
+                         q.shape[1], q.dtype)
+    return _rotate(q, c, si), _rotate(k, c, si)
+
+
+def scaled_dot_product_attention(q, k, v, attn_mask=None,
+                                 is_causal: bool = False):
+    """Plain attention in [b, s, h, d] layout, the arithmetic of the JAX
+    package's ``nn.functional.scaled_dot_product_attention``: scores in
+    the activation dtype, masked with -1e9, softmax in fp32."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    scores = torch.matmul(qt, kt.transpose(-1, -2)) * scale
+    if is_causal:
+        sq, sk = scores.shape[-2], scores.shape[-1]
+        causal = torch.ones(sq, sk, dtype=torch.bool,
+                            device=q.device).tril(sk - sq)
+        scores = scores.masked_fill(~causal, -1e9)
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            scores = scores.masked_fill(~attn_mask, -1e9)
+        else:
+            scores = scores + attn_mask
+    probs = torch.softmax(scores.float(), dim=-1).to(vt.dtype)
+    return torch.matmul(probs, vt).transpose(1, 2)
+
+
+def grouped_query_sdpa(q, k, v, attn_mask=None):
+    """Plain GQA attention without expanding k/v (the JAX package's
+    ``grouped_query_sdpa``): q [b, s, H, d], k/v [b, t, KV, d], query
+    head j reads kv head j // (H // KV); ``attn_mask`` is additive (or
+    bool) and broadcasts as [b, 1, s, t]."""
+    b, s, H, d = q.shape
+    KV = k.shape[2]
+    if H % KV:
+        raise ValueError(f"num_heads ({H}) not a multiple of kv_heads ({KV})")
+    g = H // KV
+    scale = 1.0 / math.sqrt(d)
+    qt = q.transpose(1, 2).reshape(b, KV, g, s, d)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    scores = torch.einsum("bkgqd,bktd->bkgqt", qt, kt) * scale
+    if attn_mask is not None:
+        mask = attn_mask[:, :, None]
+        if mask.dtype == torch.bool:
+            scores = scores.masked_fill(~mask, -1e9)
+        else:
+            scores = scores + mask
+    probs = torch.softmax(scores.float(), dim=-1).to(vt.dtype)
+    out = torch.einsum("bkgqt,bktd->bkgqd", probs, vt)
+    return out.reshape(b, H, s, d).transpose(1, 2)
+
+
+class RMSNorm(nn.Module):
+    """Mean of squares in fp32, rsqrt, cast back to the activation dtype,
+    then the weight (the order of ``nn/functional.py`` ``rms_norm``)."""
+
+    def __init__(self, hidden: int, eps: float, device=None, dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(hidden, device=device,
+                                              dtype=dtype))
+
+    def forward(self, x):
+        xf = x.float()
+        ms = xf.pow(2).mean(dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(ms + self.eps)).to(x.dtype) * self.weight
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.num_heads = config.num_attention_heads
+        self.num_kv_heads = config.num_key_value_heads
+        self.head_dim = config.hidden_size // config.num_attention_heads
+        h, kvd = config.hidden_size, self.num_kv_heads * self.head_dim
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.q_proj = nn.Linear(h, self.num_heads * self.head_dim, **kw)
+        self.k_proj = nn.Linear(h, kvd, **kw)
+        self.v_proj = nn.Linear(h, kvd, **kw)
+        self.o_proj = nn.Linear(self.num_heads * self.head_dim, h, **kw)
+
+    def forward(self, hidden_states, rope, attn_mask=None, kv_cache=None,
+                position_offset=0):
+        """``rope``: this forward's (cos, sin) rows from ``rope_factors``."""
+        b, s, _ = hidden_states.shape
+        q = self.q_proj(hidden_states).view(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(hidden_states).view(b, s, self.num_kv_heads,
+                                            self.head_dim)
+        v = self.v_proj(hidden_states).view(b, s, self.num_kv_heads,
+                                            self.head_dim)
+        q, k = _rotate(q, *rope), _rotate(k, *rope)
+
+        if kv_cache is None:
+            rep = self.num_heads // self.num_kv_heads
+            if rep > 1:
+                k = k.repeat_interleave(rep, dim=2)
+                v = v.repeat_interleave(rep, dim=2)
+            out = scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                               is_causal=attn_mask is None)
+            return self.o_proj(out.reshape(b, s, -1))
+
+        paged = "bt" in kv_cache
+        dispatch = paged_decode_dispatch if paged else decode_dispatch
+        use_kernel = dispatch("llama", q_len=s, has_mask=attn_mask is not None,
+                              dtype=q.dtype)
+        k_full, v_full, new_cache, mask = update_static_kv_cache(
+            kv_cache, k, v, position_offset,
+            build_mask=attn_mask is None and not use_kernel,
+            gather=not use_kernel)
+        if use_kernel:
+            if paged:
+                out = paged_flash_decode_attention(
+                    q, new_cache["k"], new_cache["v"], new_cache["bt"],
+                    position_offset)
+            else:
+                out = flash_decode_attention(q, k_full, v_full,
+                                             position_offset)
+        else:
+            if attn_mask is None:
+                attn_mask = mask
+            out = grouped_query_sdpa(q, k_full, v_full, attn_mask=attn_mask)
+        return self.o_proj(out.reshape(b, s, -1)), new_cache
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(bias=False, device=device, dtype=dtype)
+        h, f = config.hidden_size, config.intermediate_size
+        self.gate_proj = nn.Linear(h, f, **kw)
+        self.up_proj = nn.Linear(h, f, **kw)
+        self.down_proj = nn.Linear(f, h, **kw)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.self_attn = LlamaAttention(config, device, dtype)
+        self.mlp = LlamaMLP(config, device, dtype)
+        eps = config.rms_norm_eps
+        self.input_layernorm = RMSNorm(config.hidden_size, eps, device, dtype)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size, eps,
+                                                device, dtype)
+
+    def forward(self, hidden_states, rope, attn_mask=None, kv_cache=None,
+                position_offset=0):
+        residual = hidden_states
+        h = self.input_layernorm(hidden_states)
+        new_cache = None
+        if kv_cache is not None:
+            h, new_cache = self.self_attn(h, rope, attn_mask, kv_cache,
+                                          position_offset)
+        else:
+            h = self.self_attn(h, rope, attn_mask)
+        h = residual + h
+        out = h + self.mlp(self.post_attention_layernorm(h))
+        if kv_cache is not None:
+            return out, new_cache
+        return out
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
+                                         device=device, dtype=dtype)
+        self.layers = nn.ModuleList(
+            [LlamaDecoderLayer(config, device, dtype)
+             for _ in range(config.num_hidden_layers)])
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device,
+                            dtype)
+        head_dim = config.hidden_size // config.num_attention_heads
+        cos, sin = _rope_tables(head_dim, config.max_position_embeddings,
+                                config.rope_theta)
+        # fp32 buffers, saved in the state dict under the JAX model's names
+        self.register_buffer("rope_cos", cos.to(device))
+        self.register_buffer("rope_sin", sin.to(device))
+
+    def forward(self, input_ids, attn_mask=None, kv_caches=None,
+                position_offset=0):
+        h = self.embed_tokens(input_ids)
+        rope = rope_factors(self.rope_cos, self.rope_sin, position_offset,
+                            h.shape[0], h.shape[1], h.dtype)
+        if kv_caches is not None:
+            new_caches = []
+            for layer, cache in zip(self.layers, kv_caches, strict=True):
+                h, nc = layer(h, rope, attn_mask, cache, position_offset)
+                new_caches.append(nc)
+            return self.norm(h), new_caches
+        for layer in self.layers:
+            h = layer(h, rope, attn_mask)
+        return self.norm(h)
+
+
+class LlamaForCausalLM(nn.Module):
+    """``device=None`` resolves to ``cuda`` (raises without a GPU);
+    ``dtype=None`` takes ``config.dtype``."""
+
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        device = resolve_device(device)
+        dtype = dtype if dtype is not None else _DTYPES[config.dtype]
+        self.config = config
+        self.llama = LlamaModel(config, device, dtype)
+        if config.tie_word_embeddings:
+            self.lm_head = None
+        else:
+            self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
+                                     bias=False, device=device, dtype=dtype)
+
+    def forward(self, input_ids, attn_mask=None, kv_caches=None,
+                position_offset=0):
+        if kv_caches is not None:
+            h, new_caches = self.llama(input_ids, attn_mask, kv_caches,
+                                       position_offset)
+        else:
+            h = self.llama(input_ids, attn_mask)
+        if self.lm_head is None:
+            logits = torch.matmul(h, self.llama.embed_tokens.weight.t())
+        else:
+            logits = self.lm_head(h)
+        if kv_caches is not None:
+            return logits, new_caches
+        return logits
+
+    def generate(self, input_ids, max_new_tokens: int = 32, **kwargs):
+        from ..generation import generate
+
+        return generate(self, input_ids, max_new_tokens=max_new_tokens,
+                        **kwargs)

@@ -1,0 +1,49 @@
+"""Serving counters as plain integers (the JAX package's
+``serving/metrics.py`` registers Prometheus instruments; the registry
+comes to the port with the host-stack slice).
+
+``COUNTERS`` holds monotonic counts, keyed by name (a label, where the
+JAX instrument has one, is appended after a colon:
+``requests_total:completed``). ``GAUGES`` holds the latest value of a
+level (``queue_depth``, ``kv_blocks_in_use``). Queue waits are kept for
+the scheduler's deadline check (``queue_wait_p50``).
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import Counter, deque
+from typing import Optional
+
+__all__ = ["COUNTERS", "GAUGES", "inc", "set_gauge", "observe_queue_wait",
+           "queue_wait_p50"]
+
+COUNTERS: Counter = Counter()
+GAUGES: dict = {}
+_waits: deque = deque(maxlen=1024)
+_lock = threading.Lock()
+
+
+def inc(name: str, n: int = 1, label: Optional[str] = None) -> None:
+    key = name if label is None else f"{name}:{label}"
+    with _lock:
+        COUNTERS[key] += n
+
+
+def set_gauge(name: str, value) -> None:
+    with _lock:
+        GAUGES[name] = value
+
+
+def observe_queue_wait(seconds: float) -> None:
+    with _lock:
+        _waits.append(float(seconds))
+
+
+def queue_wait_p50() -> Optional[float]:
+    """Median of the recent queue waits, None before the first one."""
+    with _lock:
+        if not _waits:
+            return None
+        w = sorted(_waits)
+    return w[len(w) // 2]

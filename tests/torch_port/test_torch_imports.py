@@ -1,0 +1,89 @@
+"""The port stands alone: no file of ``paddle_tpu_torch`` (nor
+``chip_smoke.py``) imports jax or the JAX package, importing the port
+leaves jax out of ``sys.modules``, and its entry points default to CUDA
+and refuse to run without it."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "paddle_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_paddle_tpu_import(path):
+    bad = [(m, ln) for m, ln in _imported_roots(path) if m in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_importing_the_port_leaves_jax_out():
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models, "
+            "paddle_tpu_torch.generation, paddle_tpu_torch.serving, "
+            "paddle_tpu_torch.kernels; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from paddle_tpu_torch import resolve_device
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LlamaForCausalLM(LlamaConfig.tiny())
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(model, max_slots=1, max_len=64)
+    assert resolve_device("cpu").type == "cpu"
+
+
+def _run_smoke(cwd):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    r = _run_smoke(ROOT)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    r = _run_smoke(str(tmp_path))
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
