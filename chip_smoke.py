@@ -9,13 +9,17 @@ Phases, each printing JSON lines (and failing loudly on any check):
    torch and CUDA versions.
 2. ``build``: nvcc builds every CUDA source of the port from this
    checkout (all sources in parallel).
-3. ``kernel``: every kernel on the serving path against its plain
-   PyTorch version on the card, at the shapes listed below, bf16 (atol
-   2e-2) and fp32 (atol 1e-4); with the kernel's time (CUDA events over
-   many launches after a warm-up), the plain version's time, the time of
-   ``F.scaled_dot_product_attention`` on the same K/V laid out
-   contiguously (a yardstick the port never calls), and the least time
-   the card could take (``bound_ms``, by bytes or by operations).
+3. ``kernel``: every kernel of the serving and training paths against
+   its plain PyTorch version on the card, bf16 (atol 2e-2) and fp32
+   (atol 1e-4); with the kernel's time (CUDA events over many launches
+   after a warm-up), the plain version's time, the time of
+   ``F.scaled_dot_product_attention`` on the same inputs (a yardstick
+   the port never calls: forward for K1 and the decode kernels, its
+   backward for K2 and K3), and the least time the card could take
+   (``bound_ms``, by bytes or by operations). The decode kernels run at
+   the serving shapes; the flash-attention kernels K1-K3 compare out,
+   lse, dq, dk and dv at ``FLASH_SHAPES`` (the training shape in bf16
+   and fp32, Llama-2-7B's heads, non-causal, segment ids, s = 1000).
 4. ``serve``: Llama-2-7B at full width and depth, bf16, seeded random
    N(0, 0.02) weights made on the card, served by the paged engine
    (8 slots, max_len 2048, 16-token blocks, 256-token prefill chunks):
@@ -32,7 +36,20 @@ Phases, each printing JSON lines (and failing loudly on any check):
    on the same weights in fp32, where the check is asserted.
    ``profile``: wall and device time of a prefill and a decode
    iteration of the bf16 engine, and the kernels that take the most.
-5. ``kernels``: one summary object per kernel; then the card's
+5. ``train``: the JAX package's bench.py primary point (134M Llama,
+   hidden 768, 12 layers of 12 heads, vocab 32000, flash attention) at
+   full width and depth in bf16 with fp32 rope tables, seeded N(0, 0.02)
+   weights, trained by ``ShardedTrainStep`` with AdamW(1e-4) on one
+   repeated 16 x 1024 batch: 3 warm-up and 20 timed steps. Prints the
+   losses, ms per step, tokens/s, peak memory and an MFU estimate;
+   asserts finite losses, a first loss within 0.5 of ln(32000), a last
+   loss below the first, and exactly 12 launches per step of each of
+   K1, K2 and K3. ``profile``: one train step's wall and device time and
+   top kernels. ``train_parity``: the same width at depth 2, batch 2,
+   seq 256 in fp32, three steps on the card and three on the CPU (plain
+   versions) from the same weights: losses agree to rtol 1e-4, every
+   weight within lr and their mean difference within 1e-3 * lr.
+6. ``kernels``: one summary object per kernel; then the card's
    nvidia-smi line; the last line is
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -201,22 +218,368 @@ def kernel_phase(rng):
     return rows
 
 
-def random_llama(cfg, seed):
-    """Llama-2-7B-shaped model in bf16 on the card: linear and embedding
-    weights N(0, 0.02) from a seeded generator, norm weights one."""
+# ---------------------------------------------------------------------------
+# flash attention K1-K3 (the training path)
+# ---------------------------------------------------------------------------
+
+FLASH_META = {
+    "flash_fwd": ("K1", "paddle_tpu/pallas_kernels/flash_attention.py:211 "
+                        "(_flash_fwd, _fwd_kernel :96)"),
+    "flash_bwd_dkdv": ("K2", "paddle_tpu/pallas_kernels/flash_attention.py:388 "
+                             "(_flash_bwd dK/dV, _bwd_dkdv_kernel :230)"),
+    "flash_bwd_dq": ("K3", "paddle_tpu/pallas_kernels/flash_attention.py:426 "
+                           "(_flash_bwd dQ, _bwd_dq_kernel :290)"),
+}
+# (name, [b, s, h, d], dtype, causal, segment ids): the training shape
+# first (12 heads of 64, b 16 x s 1024, bf16, causal)
+FLASH_SHAPES = [
+    ("main", (16, 1024, 12, 64), "bfloat16", True, False),
+    ("main_fp32", (16, 1024, 12, 64), "float32", True, False),
+    ("llama2_7b_heads", (1, 2048, 32, 128), "bfloat16", True, False),
+    ("non_causal", (4, 1024, 12, 64), "bfloat16", False, False),
+    ("segments", (4, 1024, 12, 64), "bfloat16", True, True),
+    ("s1000", (4, 1000, 12, 64), "bfloat16", True, False),
+]
+
+
+def visible_pairs(b, s, h, causal, seg):
+    """(query, key) pairs that attend, summed over batch and heads."""
+    import numpy as np
+
+    if seg is None:
+        per = s * (s + 1) // 2 if causal else s * s
+        return b * h * per
+    total = 0
+    for row in seg:
+        _, counts = np.unique(row, return_counts=True)
+        total += sum(int(n) * (int(n) + 1) // 2 if causal else int(n) ** 2
+                     for n in counts)
+    return h * total
+
+
+def flash_bound(name, b, s, h, d, isz, pairs, dname):
+    """Least time for one flash kernel: inputs read once, outputs written
+    once, or its matrix-product operations at the dtype's peak."""
+    n = b * s * h * d * isz
+    stats = b * h * s * 4
+    nbytes = {"flash_fwd": 4 * n + stats,             # q k v -> out, lse
+              "flash_bwd_dkdv": 6 * n + 2 * stats,    # q k v do lse delta -> dk dv
+              "flash_bwd_dq": 5 * n + 2 * stats}[name]
+    flops = {"flash_fwd": 4, "flash_bwd_dkdv": 8, "flash_bwd_dq": 6}[name] \
+        * d * pairs
+    t_bytes = nbytes / PEAKS["bw"] * 1e3
+    t_ops = flops / PEAKS[dname] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_kernel_phase(rng):
+    """K1-K3 against their plain versions on the same inputs, with their
+    times, the plain versions' and SDPA's (forward for K1, backward for
+    K2 and K3), and their bounds. Returns the rows."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    rows = []
+    for label, (b, s, h, d), dname, causal, with_seg in FLASH_SHAPES:
+        dtype = getattr(torch, dname)
+        isz = torch.empty((), dtype=dtype).element_size()
+        q, k, v, do = (torch.randn(b, s, h, d, device=dev).to(dtype)
+                       for _ in range(4))
+        seg_np = None
+        seg = None
+        if with_seg:
+            # four packed documents per row at seeded cut points
+            seg_np = np.stack([np.searchsorted(
+                np.sort(rng.choice(np.arange(1, s), 3, replace=False)),
+                np.arange(s), "right") for _ in range(b)]).astype(np.int32)
+            seg = torch.from_numpy(seg_np).to(dev)
+        scale = 1.0 / (d ** 0.5)
+        out, lse = fa._launch_fwd(q, k, v, seg, causal, scale)
+        delta = fa._delta(out, do, None)
+        dk, dv = fa._launch_bwd_kernel("flash_bwd_dkdv", q, k, v, seg, do,
+                                       lse, delta, causal, scale)
+        dq = fa._launch_bwd_kernel("flash_bwd_dq", q, k, v, seg, do, lse,
+                                   delta, causal, scale)
+        want_out, want_lse = fa.flash_attention_fwd_ref(q, k, v, seg, causal,
+                                                        scale)
+        want = fa.flash_attention_bwd_ref(q, k, v, seg, want_out, want_lse,
+                                          do, causal, scale)
+        torch.cuda.synchronize()
+
+        def err(a, b_):
+            return (a.float() - b_.float()).abs().max().item()
+
+        errs = {"out": err(out, want_out), "lse": err(lse, want_lse),
+                "dq": err(dq, want[0]), "dk": err(dk, want[1]),
+                "dv": err(dv, want[2])}
+        del want
+        # yardsticks: SDPA forward, and SDPA's backward from a saved graph
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        mask = None
+        if seg is not None:
+            mask = seg[:, None, :, None] == seg[:, None, None, :]
+            if causal:
+                mask = mask & torch.ones(s, s, dtype=torch.bool,
+                                         device=dev).tril()
+        sdpa_causal = causal and mask is None
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  is_causal=sdpa_causal)
+
+        o_lib = sdpa()
+        do_t = do.transpose(1, 2)
+        lib_fwd = cuda_ms(lambda: sdpa(), 10)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            o_lib, (qs, ks, vs), do_t, retain_graph=True), 10)
+        del o_lib
+        plain_fwd = cuda_ms(lambda: fa.flash_attention_fwd_ref(
+            q, k, v, seg, causal, scale), 3)
+        plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_ref(
+            q, k, v, seg, out, lse, do, causal, scale), 3)
+        times = {
+            "flash_fwd": (cuda_ms(lambda: fa._launch_fwd(
+                q, k, v, seg, causal, scale), 20), plain_fwd, lib_fwd),
+            "flash_bwd_dkdv": (cuda_ms(lambda: fa._launch_bwd_kernel(
+                "flash_bwd_dkdv", q, k, v, seg, do, lse, delta, causal,
+                scale), 20), plain_bwd, lib_bwd),
+            "flash_bwd_dq": (cuda_ms(lambda: fa._launch_bwd_kernel(
+                "flash_bwd_dq", q, k, v, seg, do, lse, delta, causal, scale),
+                20), plain_bwd, lib_bwd),
+        }
+        pairs = visible_pairs(b, s, h, causal, seg_np)
+        checked = {"flash_fwd": ("out", "lse"), "flash_bwd_dkdv": ("dk", "dv"),
+                   "flash_bwd_dq": ("dq",)}
+        for name, (ms, plain_ms, lib_ms) in times.items():
+            bound, bound_by = flash_bound(name, b, s, h, d, isz, pairs, dname)
+            e = max(errs[x] for x in checked[name])
+            row = {"phase": "kernel", "name": name, "case": label,
+                   "dtype": dname, "shape_bshd": [b, s, h, d],
+                   "causal": causal, "segments": with_seg,
+                   "max_abs_err": e,
+                   "errs": {x: errs[x] for x in checked[name]},
+                   "atol": ATOL[dname], "ok": e <= ATOL[dname], "ms": ms,
+                   "plain_ms": plain_ms,
+                   "plain_covers": "forward" if name == "flash_fwd"
+                   else "dq, dk and dv together",
+                   "library_ms": lib_ms,
+                   "library": "F.scaled_dot_product_attention "
+                              + ("forward" if name == "flash_fwd"
+                                 else "backward (dq, dk and dv together)"),
+                   "bound_ms": bound, "bound_by": bound_by}
+            emit(row)
+            rows.append(row)
+            check(row["ok"], f"{name} disagrees with its plain version: "
+                             f"{json.dumps(row)}")
+        del q, k, v, do, out, lse, delta, dq, dk, dv, qs, ks, vs
+        torch.cuda.empty_cache()
+    return rows
+
+
+# the training configuration: the primary point of the JAX package's
+# bench.py (bench.py:406-418) at full width and depth
+TRAIN_CFG = dict(vocab_size=32000, hidden_size=768, intermediate_size=2048,
+                 num_hidden_layers=12, num_attention_heads=12,
+                 num_key_value_heads=12, max_position_embeddings=2048,
+                 use_flash_attention=True)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 16, 1024, 1e-4
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+
+
+def seeded_llama(cfg, seed, device, dtype):
+    """Llama with linear and embedding weights N(0, 0.02) from a seeded
+    generator on ``device``, norm weights one; rope tables stay fp32."""
     import torch
 
     from paddle_tpu_torch.models import LlamaForCausalLM
 
-    model = LlamaForCausalLM(cfg, device=DEV, dtype=torch.bfloat16)
-    g = torch.Generator(device=DEV).manual_seed(seed)
+    model = LlamaForCausalLM(cfg, device=device, dtype=dtype)
+    g = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
             else:
                 p.normal_(0.0, 0.02, generator=g)
-    return model.eval()
+    return model
+
+
+def device_window(fn, n):
+    """Wall ms per call of ``fn`` (host clock, synchronised) and, from a
+    torch.profiler trace of ``n`` more calls, the device ms per call (sum
+    of kernel times), the idle share and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    # kernels only: an operator's own row repeats its kernels' time
+    dev = [(e.key, e.self_device_time_total / 1e3 / n)
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    busy = sum(t for _, t in dev)
+    top = sorted(dev, key=lambda kv: -kv[1])[:10]
+    kinds = {"port_kernels": 0.0, "cublas": 0.0, "other": 0.0}
+    for k, t in dev:
+        kind = "port_kernels" if k.startswith("void flash_") or \
+            "flash_decode" in k else "cublas" if k.startswith(
+                ("nvjet", "sm90_", "cutlass")) or "gemm" in k.lower() \
+            else "other"
+        kinds[kind] += t
+    return {"wall_ms": wall, "device_ms": busy or None,
+            "idle_share": (1 - busy / wall) if busy else None,
+            "device_ms_by_kind": kinds,
+            "top_device_ms": [[k[:80], t] for k, t in top]}
+
+
+def train_phase(kind):
+    """The 134M Llama trained by ``ShardedTrainStep`` with AdamW(1e-4) on
+    one repeated numpy-seeded batch (as bench.py does): warm-up and timed
+    steps, then a profiled step. Returns the flash launch counts of the
+    warm-up and timed steps."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import ShardedTrainStep
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import LlamaConfig, llama_pretrain_loss
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig(**TRAIN_CFG)
+    L = cfg.num_hidden_layers
+    model = seeded_llama(cfg, SEED, DEV, torch.bfloat16)
+    check(model.llama.rope_cos.dtype == torch.float32, "rope tables not fp32")
+    step = ShardedTrainStep(model, llama_pretrain_loss,
+                            AdamW(learning_rate=TRAIN_LR))
+    rng = np.random.RandomState(SEED)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (TRAIN_BATCH, TRAIN_SEQ))).to(DEV)
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          (TRAIN_BATCH, TRAIN_SEQ))).to(DEV)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counters()
+    losses = [step.step(ids, labels).item()
+              for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [step.step(ids, labels) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    losses += [t.item() for t in timed]
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tok_s = tokens * TRAIN_STEPS / secs
+    flops_tok = 6 * n_params + 12 * L * TRAIN_SEQ * cfg.hidden_size
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    row = {"phase": "train", "model": "llama_134m (bench.py primary point)",
+           "dtype": "bfloat16", "params": n_params, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "lr": TRAIN_LR, "warmup_steps": TRAIN_WARMUP,
+           "timed_steps": TRAIN_STEPS, "losses": losses,
+           "ms_per_step": secs / TRAIN_STEPS * 1e3, "tokens_per_s": tok_s,
+           "peak_memory_gib": peak / 2**30,
+           "mfu_estimate": tok_s * flops_tok / PEAKS["bfloat16"],
+           "mfu_note": "estimate: bench.py's 6N + 12*L*s*h flops per token "
+                       "against the 989 TFLOP/s bf16 data-sheet peak",
+           "kernel_launches": launches, "card": kind}
+    emit(row)
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) < 0.5,
+          f"first loss {losses[0]} not within 0.5 of ln(vocab)")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for name in fa.LAUNCHES:
+        check(launches[name] == L * n_steps,
+              f"{name} launched {launches[name]} times, expected "
+              f"{L} layers x {n_steps} steps = {L * n_steps}")
+    prof = device_window(lambda: step.step(ids, labels), 1)
+    emit({"phase": "profile", "model": "llama_134m", "dtype": "bfloat16",
+          "what": "one train step (forward, loss, backward, AdamW)",
+          "train_step": prof, "card": kind})
+    del step, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_parity_phase(kind):
+    """The training width at depth 2, batch 2, seq 256, in fp32: three
+    steps on the card (through the kernels) and three on the CPU (plain
+    versions) from the same weights and batch. Losses agree to rtol 1e-4.
+    Weights: Adam divides m by sqrt(v), so an element whose gradient sums
+    to near zero (|g| ~ eps) can take its step differently on the two
+    devices from last-bit differences in g, by up to about one lr; so
+    every element is held to atol = lr, and the mean difference to
+    1e-3 * lr, which a wrong update rule (off by ~lr on every element)
+    cannot meet."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import ShardedTrainStep
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         llama_pretrain_loss)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig(**dict(TRAIN_CFG, num_hidden_layers=2))
+    cpu = seeded_llama(cfg, SEED + 1, "cpu", torch.float32)
+    gpu = LlamaForCausalLM(cfg, device=DEV, dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(SEED + 1)
+    ids = rng.randint(0, cfg.vocab_size, (2, 256))
+    labels = rng.randint(0, cfg.vocab_size, (2, 256))
+    steps = {}
+    losses = {}
+    fa.reset_counters()
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        steps[name] = ShardedTrainStep(model, llama_pretrain_loss,
+                                       AdamW(learning_rate=TRAIN_LR))
+        losses[name] = [steps[name].step(ids, labels).item()
+                        for _ in range(3)]
+    launches = dict(fa.LAUNCHES)
+    diffs = {k: (steps["cuda"].params[k].cpu() - steps["cpu"].params[k])
+             .abs() for k in steps["cpu"].params}
+    w_err, worst = max((d.max().item(), k) for k, d in diffs.items())
+    n_elems = sum(d.numel() for d in diffs.values())
+    w_mean = sum(d.sum().item() for d in diffs.values()) / n_elems
+    n_over = sum(int((d > 0.02 * TRAIN_LR).sum()) for d in diffs.values())
+    l_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+    row = {"phase": "train_parity", "dtype": "float32", "layers": 2,
+           "batch": 2, "seq": 256, "lr": TRAIN_LR, "losses": losses,
+           "loss_max_rel_err": l_rel, "loss_rtol": 1e-4,
+           "weight_max_abs_err": w_err, "weight_worst": worst,
+           "weight_atol": TRAIN_LR, "weight_mean_abs_err": w_mean,
+           "weight_mean_atol": 1e-3 * TRAIN_LR,
+           "weights_over_0.02_lr": n_over, "weights": n_elems,
+           "kernel_launches_cuda": launches, "card": kind}
+    emit(row)
+    check(l_rel <= 1e-4, f"card and CPU losses differ: {losses}")
+    check(w_err <= TRAIN_LR and w_mean <= 1e-3 * TRAIN_LR,
+          f"card and CPU weights differ: max {w_err} ({worst}), mean "
+          f"{w_mean}")
+    check(all(n == 2 * 3 for n in launches.values()),
+          f"fp32 card steps did not run the kernels: {launches}")
+    del steps, gpu, cpu
+    torch.cuda.empty_cache()
 
 
 def teacher_forced(model, prompt, emitted):
@@ -365,8 +728,6 @@ def profile_phase(model, requests, kind):
     (the sum of kernel times on the card) from a torch.profiler trace of
     the same number of iterations."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
@@ -377,27 +738,7 @@ def profile_phase(model, requests, kind):
         eng.submit(p, max_new_tokens=m)
 
     def window(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / n * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                eng.step()
-            torch.cuda.synchronize()
-        # kernels only: an operator's own row repeats its kernels' time
-        dev = [(e.key, e.self_device_time_total / 1e3 / n)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
-        busy = sum(t for _, t in dev)
-        top = sorted(dev, key=lambda kv: -kv[1])[:8]
-        return {"wall_ms": wall, "device_ms": busy or None,
-                "idle_share": (1 - busy / wall) if busy else None,
-                "top_device_ms": [[k[:80], t] for k, t in top]}
+        return device_window(eng.step, n)
 
     prefill = window(2)
     while any(j is not None for j in eng._jobs):
@@ -445,9 +786,25 @@ def generate_phase(model, cfg, requests, kind, strict):
     return launches
 
 
-def summary(rows, serve_launches, gen_launches):
-    """One object per kernel, with the numbers of its main-path shape
-    (bf16, group 1 as in Llama-2-7B, the decode step)."""
+def summary(rows, serve_launches, gen_launches, flash_rows,
+            train_launches):
+    """One object per kernel, with the numbers of its main-path shape:
+    for K1-K3 the training shape, for K4/K6 the decode step (bf16, group
+    1 as in Llama-2-7B)."""
+    out = []
+    for name, (tag, replaces) in FLASH_META.items():
+        mine = [r for r in flash_rows if r["name"] == name]
+        main = next(r for r in mine if r["case"] == "main")
+        out.append({"name": name, "route": "cuda",
+                    "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+                    "replaces": replaces, "tpu_counterpart": tag,
+                    "launches": train_launches[name],
+                    "max_abs_err": max(r["max_abs_err"] for r in mine),
+                    "ms": main["ms"], "plain_ms": main["plain_ms"],
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"],
+                    "library_ms": main["library_ms"],
+                    "ok": all(r["ok"] for r in mine)})
     meta = {
         "flash_decode_attention": {
             "replaces": "paddle_tpu/pallas_kernels/decode_attention.py:491 "
@@ -460,7 +817,6 @@ def summary(rows, serve_launches, gen_launches):
             "tpu_counterpart": "K6", "launches": serve_launches,
             "main": dict(dtype="bfloat16", q_len=1, group=1)},
     }
-    out = []
     for name, m in meta.items():
         mine = [r for r in rows if r["name"] == name]
         main = next(r for r in mine
@@ -522,10 +878,11 @@ def main(argv=None) -> int:
 
     rng = np.random.RandomState(SEED)
     rows = kernel_phase(rng)
+    flash_rows = flash_kernel_phase(rng)
 
     cfg = LlamaConfig.llama2_7b(dtype="bfloat16")
     t0 = time.perf_counter()
-    model = random_llama(cfg, SEED)
+    model = seeded_llama(cfg, SEED, DEV, torch.bfloat16).eval()
     torch.cuda.synchronize()
     emit({"phase": "model", "name": "llama2_7b", "dtype": "bfloat16",
           "params": sum(p.numel() for p in model.parameters()),
@@ -542,8 +899,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     serve_phase(model, cfg, requests, kind, strict=True)
     generate_phase(model, cfg, requests, kind, strict=True)
+    del model
+    torch.cuda.empty_cache()
 
-    emit({"kernels": summary(rows, serve_launches, gen_launches)})
+    train_launches = train_phase(kind)
+    train_parity_phase(kind)
+
+    emit({"kernels": summary(rows, serve_launches, gen_launches, flash_rows,
+                             train_launches)})
     emit(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

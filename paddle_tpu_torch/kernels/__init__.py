@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels of the port (counterpart of
 ``paddle_tpu/pallas_kernels``). CUDA sources live in ``csrc/`` and are
 built by ``_build`` at first use; every kernel has a plain PyTorch
-version beside it in the same module."""
+version beside it in the same module. The flash-attention functions
+stay in their module (``kernels.flash_attention``), whose name the
+function would otherwise shadow here."""
 
 from .decode_attention import (MAX_DECODE_Q_LEN, MAX_PAGED_Q_LEN,
                                decode_dispatch, flash_decode_attention,

@@ -33,6 +33,12 @@ SOURCES = {
     "decode_attention.cu": {
         "paddle_flash_decode": [_P] * 9 + [_I] * 12 + [_F, _P],
     },
+    # pointers, then an int64 stride array, then (bf16, B, S, H, D, causal)
+    "flash_attention.cu": {
+        "paddle_flash_fwd": [_P] * 7 + [_I] * 6 + [_F, _P],
+        "paddle_flash_bwd_dkdv": [_P] * 10 + [_I] * 6 + [_F, _P],
+        "paddle_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [_F, _P],
+    },
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,7 @@
 """Models of the port (counterpart of ``paddle_tpu/models``)."""
 
-from .convert import load_paddle_tpu_state
-from .llama import LlamaConfig, LlamaForCausalLM
+from .convert import export_paddle_tpu_state, load_paddle_tpu_state
+from .llama import LlamaConfig, LlamaForCausalLM, llama_pretrain_loss
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "load_paddle_tpu_state"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "llama_pretrain_loss",
+           "load_paddle_tpu_state", "export_paddle_tpu_state"]

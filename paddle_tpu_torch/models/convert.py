@@ -5,6 +5,7 @@ model.state_dict().items()}`` uses the same key names as the port. Its
 ``nn.Linear`` stores ``[in, out]``; torch stores ``[out, in]``, so every
 ``*_proj.weight`` and ``lm_head.weight`` is transposed on the way in
 (the reverse of the JAX package's ``convert_hf_llama_state_dict``).
+``export_paddle_tpu_state`` goes the other way.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["load_paddle_tpu_state"]
+__all__ = ["load_paddle_tpu_state", "export_paddle_tpu_state"]
 
 
 def _is_linear_weight(name: str) -> bool:
@@ -41,3 +42,19 @@ def load_paddle_tpu_state(model: torch.nn.Module, state: dict):
                                  f"match {tuple(dst.shape)}")
             dst.copy_(torch.from_numpy(np.array(arr)))
     return model
+
+
+def export_paddle_tpu_state(model: torch.nn.Module) -> dict:
+    """The model's state as the JAX package names and lays it out: name ->
+    numpy array, linear weights transposed back to ``[in, out]``. bf16
+    tensors come out as float32 (exact); numpy has no bf16."""
+    out = {}
+    for name, t in model.state_dict().items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        arr = t.numpy()
+        if _is_linear_weight(name) and arr.ndim == 2:
+            arr = arr.T
+        out[name] = np.ascontiguousarray(arr)
+    return out

@@ -4,13 +4,20 @@ The same module tree and parameter names as the JAX model, so one
 numpy state dict loads into both (``models.convert``). Linear weights
 are torch's ``[out, in]``; the JAX package stores ``[in, out]``.
 
-Attention has the two branches the serving slice needs:
+Attention takes the JAX model's branches:
 - static KV caches (a dict per layer, contiguous or paged): the step's
   k/v are written in place, then the flash-decode kernels run when
   ``decode_dispatch`` / ``paged_decode_dispatch`` accept the call, and
   the plain grouped attention over the masked cache runs where they
-  decline (where the JAX package runs XLA);
-- no cache: plain causal attention over the sequence.
+  decline (where the JAX package runs XLA). With
+  ``use_flash_attention``, a contiguous-cache prefill at offset 0 runs
+  the flash-attention kernel over the prompt instead;
+- no cache: causal attention over the sequence, through the
+  flash-attention kernels (K1-K3) with ``use_flash_attention`` and the
+  plain attention without it. GQA k/v are expanded first (``repeat_kv``).
+
+``llama_pretrain_loss`` is the shifted next-token cross entropy of the
+training step, with the JAX package's fused streaming-LSE gradient.
 """
 
 from __future__ import annotations
@@ -28,12 +35,13 @@ from ..kernels.decode_attention import (decode_dispatch,
                                         flash_decode_attention,
                                         paged_decode_dispatch,
                                         paged_flash_decode_attention)
+from ..kernels.flash_attention import flash_attention
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
            "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP", "RMSNorm",
            "apply_rotary_pos_emb", "rope_factors",
-           "scaled_dot_product_attention",
-           "grouped_query_sdpa"]
+           "scaled_dot_product_attention", "grouped_query_sdpa",
+           "repeat_kv", "llama_pretrain_loss"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -50,6 +58,7 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
+    use_flash_attention: bool = False  # flash-attention kernels K1-K3
     dtype: str = "float32"
 
     @staticmethod
@@ -140,6 +149,24 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None,
     return torch.matmul(probs, vt).transpose(1, 2)
 
 
+def repeat_kv(x, rep: int):
+    """GQA head expansion: [b, s, kv_heads, d] -> [b, s, kv_heads * rep,
+    d]; each kv head serves ``rep`` consecutive query heads."""
+    return x.repeat_interleave(rep, dim=2) if rep > 1 else x
+
+
+def _flash_prefill(q, k, v):
+    """Causal flash attention over a [b, s, h, d] prompt zero-padded to a
+    multiple of 128, as the JAX model pads it for the TPU grid; padded
+    queries are sliced off, and no real query sees a padded key under the
+    causal mask."""
+    s = q.shape[1]
+    pad = -s % 128
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    return flash_attention(q, k, v, causal=True)[:, :s]
+
+
 def grouped_query_sdpa(q, k, v, attn_mask=None):
     """Plain GQA attention without expanding k/v (the JAX package's
     ``grouped_query_sdpa``): q [b, s, H, d], k/v [b, t, KV, d], query
@@ -186,6 +213,7 @@ class LlamaAttention(nn.Module):
         super().__init__()
         self.num_heads = config.num_attention_heads
         self.num_kv_heads = config.num_key_value_heads
+        self.use_flash_attention = config.use_flash_attention
         self.head_dim = config.hidden_size // config.num_attention_heads
         h, kvd = config.hidden_size, self.num_kv_heads * self.head_dim
         kw = dict(bias=False, device=device, dtype=dtype)
@@ -205,24 +233,38 @@ class LlamaAttention(nn.Module):
                                             self.head_dim)
         q, k = _rotate(q, *rope), _rotate(k, *rope)
 
+        rep = self.num_heads // self.num_kv_heads
         if kv_cache is None:
-            rep = self.num_heads // self.num_kv_heads
-            if rep > 1:
-                k = k.repeat_interleave(rep, dim=2)
-                v = v.repeat_interleave(rep, dim=2)
-            out = scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
-                                               is_causal=attn_mask is None)
+            k, v = repeat_kv(k, rep), repeat_kv(v, rep)
+            if self.use_flash_attention and attn_mask is None:
+                out = flash_attention(q, k, v, causal=True)
+            else:
+                out = scaled_dot_product_attention(
+                    q, k, v, attn_mask=attn_mask, is_causal=attn_mask is None)
             return self.o_proj(out.reshape(b, s, -1))
 
         paged = "bt" in kv_cache
-        dispatch = paged_decode_dispatch if paged else decode_dispatch
-        use_kernel = dispatch("llama", q_len=s, has_mask=attn_mask is not None,
-                              dtype=q.dtype)
+        # flash prefill: at offset 0, causal attention over the prompt
+        # alone equals the masked attention over the cache; paged caches
+        # never take it (a chunk must read earlier blocks via the table)
+        flash_prefill = (not paged and self.use_flash_attention
+                         and attn_mask is None
+                         and isinstance(position_offset, int)
+                         and position_offset == 0 and s > 1)
+        use_kernel = False
+        if not flash_prefill:
+            dispatch = paged_decode_dispatch if paged else decode_dispatch
+            use_kernel = dispatch("llama", q_len=s,
+                                  has_mask=attn_mask is not None,
+                                  dtype=q.dtype)
         k_full, v_full, new_cache, mask = update_static_kv_cache(
             kv_cache, k, v, position_offset,
-            build_mask=attn_mask is None and not use_kernel,
+            build_mask=(attn_mask is None and not use_kernel
+                        and not flash_prefill),
             gather=not use_kernel)
-        if use_kernel:
+        if flash_prefill:
+            out = _flash_prefill(q, repeat_kv(k, rep), repeat_kv(v, rep))
+        elif use_kernel:
             if paged:
                 out = paged_flash_decode_attention(
                     q, new_cache["k"], new_cache["v"], new_cache["bt"],
@@ -347,3 +389,77 @@ class LlamaForCausalLM(nn.Module):
 
         return generate(self, input_ids, max_new_tokens=max_new_tokens,
                         **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# pretraining loss
+# ---------------------------------------------------------------------------
+
+# logits rows per chunk of the fused loss: bounds its fp32 temporaries to
+# ~256 MB however large b * s * vocab is
+_CE_CHUNK_ELEMS = 1 << 26
+
+
+def _row_chunks(n_rows: int, vocab: int):
+    step = max(1, _CE_CHUNK_ELEMS // vocab)
+    return [slice(i, min(i + step, n_rows)) for i in range(0, n_rows, step)]
+
+
+def _lse_stream(lg):
+    """fp32 row LSE of [n, vocab] logits without an fp32 copy of them:
+    ``max`` in the logits dtype, ``exp((lg - m) as fp32)`` summed chunk by
+    chunk."""
+    out = torch.empty(lg.shape[0], dtype=torch.float32, device=lg.device)
+    for c in _row_chunks(*lg.shape):
+        x = lg[c]
+        m = x.amax(dim=-1)
+        z = torch.exp((x - m[:, None]).float()).sum(dim=-1)
+        out[c] = m.float() + torch.log(z)
+    return out
+
+
+class _FusedShiftCE(torch.autograd.Function):
+    """Mean cross entropy of [n, vocab] logits against already shifted
+    labels (``-100`` ignored). The gradient ``(softmax - onehot) * mask *
+    g / n`` is computed in the logits dtype; the logits are the only large
+    residual (the counterpart of ``_fused_shift_ce``)."""
+
+    @staticmethod
+    def forward(ctx, lg, lab):
+        v = lg.shape[-1]
+        lse = _lse_stream(lg)
+        idx = lab.clamp(0, v - 1)
+        picked = lg.gather(1, idx[:, None])[:, 0]
+        mask = lab != -100
+        n = mask.sum().clamp_min(1)
+        ctx.save_for_backward(lg, idx, mask, lse, n)
+        return ((lse - picked.float()) * mask).sum() / n
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, idx, mask, lse, n = ctx.saved_tensors
+        dt = lg.dtype
+        scale = (g / n).to(dt)
+        dlg = torch.empty_like(lg)
+        for c in _row_chunks(*lg.shape):
+            p = torch.exp(lg[c] - lse[c, None].to(dt))
+            rows = torch.arange(p.shape[0], device=p.device)
+            p[rows, idx[c]] -= 1        # softmax - onehot, in the logits dtype
+            p *= mask[c, None].to(dt)
+            p *= scale
+            dlg[c] = p
+        return dlg, None
+
+
+def llama_pretrain_loss(logits, labels):
+    """Shifted next-token cross entropy: position t predicts labels[t + 1]
+    (labels may equal the input ids; ``-100`` is ignored; [b, s, 1] labels
+    are accepted). The last position has no target. Returns the fp32 mean
+    over the counted positions."""
+    b, s, v = logits.shape
+    lab = torch.as_tensor(labels, device=logits.device).long()
+    if lab.dim() == 3 and lab.shape[-1] == 1:
+        lab = lab[..., 0]
+    lab_s = torch.cat([lab[:, 1:], torch.full((b, 1), -100, dtype=lab.dtype,
+                                              device=lab.device)], dim=1)
+    return _FusedShiftCE.apply(logits.reshape(b * s, v), lab_s.reshape(-1))

@@ -78,3 +78,17 @@ def test_sampling_is_refused(pair):
     _, tm, _ = pair
     with pytest.raises(NotImplementedError, match="threefry"):
         tm.generate(np.ones((1, 3), np.int64), do_sample=True)
+
+
+@pytest.mark.parametrize("S", [11, 128])
+def test_greedy_generate_with_flash_attention_matches_jax(S):
+    """With ``use_flash_attention`` the offset-0 prefill runs the flash
+    kernel (padded to 128, as the JAX model pads it); tokens equal the
+    JAX package's exactly."""
+    jm, tm, cfg = tiny_pair(max_position_embeddings=256,
+                            use_flash_attention=True)
+    ids = np.random.RandomState(S + 1).randint(1, cfg.vocab_size, (2, S))
+    want = np.asarray(jgen.generate(jm, ids.astype(np.int32),
+                                    max_new_tokens=8)._data)
+    got = tm.generate(ids, max_new_tokens=8).numpy()
+    np.testing.assert_array_equal(got, want)

@@ -44,7 +44,9 @@ def test_no_jax_or_paddle_tpu_import(path):
 def test_importing_the_port_leaves_jax_out():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models, "
             "paddle_tpu_torch.generation, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.kernels; "
+            "paddle_tpu_torch.kernels, "
+            "paddle_tpu_torch.kernels.flash_attention, "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.distributed; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; "
             "assert not bad, bad")

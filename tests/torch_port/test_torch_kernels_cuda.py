@@ -67,3 +67,54 @@ def test_paged_kernel_matches_plain(q_len, group, dtype):
     want = tda.paged_flash_decode_attention_ref(q, kp, vp, bt, pos)
     torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype],
                                rtol=0)
+
+
+def _flash_case(rng, shape, dtype, with_seg):
+    """Seeded q/k/v, output and LSE cotangents (and segment ids) on the
+    card for one flash-attention case."""
+    b, s, h, d = shape
+    q, k, v, do = (_cuda(rng, shape, dtype) for _ in range(4))
+    dlse = torch.from_numpy(rng.randn(b, h, s).astype(np.float32)).cuda()
+    seg = None
+    if with_seg:
+        cuts = np.sort(rng.choice(np.arange(1, s), 3, replace=False))
+        seg = torch.from_numpy(np.searchsorted(cuts, np.arange(s), "right")
+                               .astype(np.int32)[None].repeat(b, 0)).cuda()
+    return q, k, v, do, dlse, seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("s,d,causal,with_seg", [
+    (256, 64, True, False), (200, 128, True, False), (130, 32, False, False),
+    (192, 64, True, True), (100, 64, False, True)])
+def test_flash_kernels_match_plain(s, d, causal, with_seg, dtype):
+    """K1 (out, lse), K2 (dk, dv) and K3 (dq) against the plain versions
+    on the same inputs, with a nonzero LSE cotangent."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+
+    require_cuda()
+    rng = np.random.RandomState(s + d)
+    shape = (2, s, 3, d)
+    q, k, v, do, dlse, seg = _flash_case(rng, shape, dtype, with_seg)
+    scale = 1.0 / np.sqrt(d)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    tfa.reset_counters()
+    out, lse = tfa.flash_attention_lse(qg, kg, vg, causal=causal,
+                                       segment_ids=seg)
+    torch.autograd.backward([out, lse], [do, dlse])
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dkdv": 1,
+                            "flash_bwd_dq": 1}
+    want_out, want_lse = tfa.flash_attention_fwd_ref(q, k, v, seg, causal,
+                                                     scale)
+    want = tfa.flash_attention_bwd_ref(q, k, v, seg, want_out, want_lse, do,
+                                       causal, scale, dlse)
+    atol = ATOL[dtype]
+    torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=atol, rtol=0)
+    for got, ref in zip((qg.grad, kg.grad, vg.grad), want):
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=0)

@@ -71,3 +71,19 @@ def test_rope_matches(offset):
                                          off_t)
     np.testing.assert_allclose(tq.numpy(), np.asarray(jq._data), atol=1e-6)
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk._data), atol=1e-6)
+
+
+def test_flash_uncached_logits_match():
+    """``use_flash_attention`` routes the uncached forward through the
+    flash-attention function (GQA expanded first): logits agree with the
+    JAX model at atol 1e-4, and with the port's plain path."""
+    jm, tm, cfg = tiny_pair(use_flash_attention=True)
+    ids = np.random.RandomState(4).randint(0, cfg.vocab_size, (2, 40))
+    want = np.asarray(jm(paddle.to_tensor(ids.astype(np.int32)))._data)
+    got = tm(torch.from_numpy(ids))
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-4, rtol=0)
+    for layer in tm.llama.layers:
+        layer.self_attn.use_flash_attention = False
+    plain = tm(torch.from_numpy(ids))
+    np.testing.assert_allclose(got.detach().numpy(), plain.detach().numpy(),
+                               atol=1e-5, rtol=0)
