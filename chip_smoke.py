@@ -20,6 +20,13 @@ Phases, each printing JSON lines (and failing loudly on any check):
    the serving shapes; the flash-attention kernels K1-K3 compare out,
    lse, dq, dk and dv at ``FLASH_SHAPES`` (the training shape in bf16
    and fp32, Llama-2-7B's heads, non-causal, segment ids, s = 1000).
+   The quantized kernels: K5 and K7 (flash decode over int8 / fp8 K/V
+   with per-token-per-head scales, dequantized in the kernel) at the
+   same serving shapes against their plain versions, with SDPA over the
+   dequantized cache as the yardstick; K9 (the weight-only quantized
+   matmul) at Llama-2-7B's linear shapes for a decode step (M 8) and a
+   prefill chunk (M 256), with ``torch.matmul`` against the weight
+   dequantized beforehand as the yardstick.
 4. ``serve``: Llama-2-7B at full width and depth, bf16, seeded random
    N(0, 0.02) weights made on the card, served by the paged engine
    (8 slots, max_len 2048, 16-token blocks, 256-token prefill chunks):
@@ -36,7 +43,23 @@ Phases, each printing JSON lines (and failing loudly on any check):
    on the same weights in fp32, where the check is asserted.
    ``profile``: wall and device time of a prefill and a decode
    iteration of the bf16 engine, and the kernels that take the most.
-5. ``train``: the JAX package's bench.py primary point (134M Llama,
+5. ``serve_quant``: the same seeded Llama-2-7B converted by
+   ``convert_for_serving`` to int8 weight-only linears and served with
+   int8 KV blocks over the same 12 requests. Checks: every request
+   completes; K7 launches exactly layers x (decode steps + prefill
+   chunks) and K9 exactly 225 x forwards (7 linears x 32 layers +
+   lm_head), with no fallback; ``generate(kv_format="int8")`` on two
+   prompts launches K5 once per layer per decode step. Reports tokens/s,
+   KV bytes per token and the capacity against bf16, the model's bytes,
+   peak memory, token agreement with the bf16 engine and the
+   teacher-forced agreement (bf16 activations, reported), and a
+   ``profile`` of its iterations. Then fp8 weights and fp8 KV on four
+   requests, with the same checks. ``quant_parity``: Llama-2-7B's width
+   at depth 2 in fp32, int8 weights and KV, served on the card and on
+   the CPU (plain versions) from the same converted weights: greedy
+   tokens equal, the card's ``generate(kv_format="int8")`` equal to the
+   card's engine, first-forward logits within 1e-3.
+6. ``train``: the JAX package's bench.py primary point (134M Llama,
    hidden 768, 12 layers of 12 heads, vocab 32000, flash attention) at
    full width and depth in bf16 with fp32 rope tables, seeded N(0, 0.02)
    weights, trained by ``ShardedTrainStep`` with AdamW(1e-4) on one
@@ -49,7 +72,8 @@ Phases, each printing JSON lines (and failing loudly on any check):
    seq 256 in fp32, three steps on the card and three on the CPU (plain
    versions) from the same weights: losses agree to rtol 1e-4, every
    weight within lr and their mean difference within 1e-3 * lr.
-6. ``kernels``: one summary object per kernel; then the card's
+7. ``kernels``: one summary object per kernel (K1-K7 and K9); then the
+   card's
    nvidia-smi line; the last line is
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -60,6 +84,7 @@ of the repository.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -100,13 +125,24 @@ def nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+# card clock cycles (about 0.5 ms) the stream is held per timed call
+HOLD_CYCLES = 1_000_000
+L2_BYTES = 50 * 2**20   # H100 L2
+
+
 def cuda_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn``: a warm-up call, then ``iters`` calls
+    enqueued behind a spin kernel that holds the stream, so they run back
+    to back and the events time the card rather than the host's launch
+    rate (a Python wrapper takes tens of microseconds a call, longer than
+    a decode kernel)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -116,12 +152,15 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def attention_bound(lens, q_len, H, KV, d, itemsize, extra_bytes,
-                    dtype_name):
-    """Least time for the attention of these rows: each valid K/V byte,
-    q, out and the index inputs moved once, or 4*d flops per visible
-    (query, key) pair at the dtype's peak, whichever is larger."""
+                    dtype_name, kv_itemsize=None, scale_bytes=0):
+    """Least time for the attention of these rows: each valid K/V byte
+    (``kv_itemsize`` each, plus ``scale_bytes`` per token and kv head
+    for a quantized cache), q, out and the index inputs moved once, or
+    4*d flops per visible (query, key) pair at the dtype's peak,
+    whichever is larger."""
     B = len(lens)
-    nbytes = sum(lens) * KV * d * 2 * itemsize \
+    kv_isz = itemsize if kv_itemsize is None else kv_itemsize
+    nbytes = sum(lens) * KV * (d * kv_isz + scale_bytes) * 2 \
         + 2 * B * q_len * H * d * itemsize + extra_bytes
     pairs = sum(H * (q_len * L - q_len * (q_len - 1) // 2) for L in lens)
     t_bytes = nbytes / PEAKS["bw"] * 1e3
@@ -438,7 +477,7 @@ def device_window(fn, n):
     kinds = {"port_kernels": 0.0, "cublas": 0.0, "other": 0.0}
     for k, t in dev:
         kind = "port_kernels" if k.startswith("void flash_") or \
-            "flash_decode" in k else "cublas" if k.startswith(
+            "flash_decode" in k or "qmm_" in k else "cublas" if k.startswith(
                 ("nvjet", "sm90_", "cutlass")) or "gemm" in k.lower() \
             else "other"
         kinds[kind] += t
@@ -666,7 +705,8 @@ def _teacher_forced_all(model, prompts, outputs, label, strict):
 
 
 def serve_phase(model, cfg, requests, kind, strict):
-    """Both engines (default pool, then 60% of it) over the traffic."""
+    """Both engines (default pool, then 60% of it) over the traffic.
+    Returns the default engine's launch counts and outputs."""
     import torch
 
     L = cfg.num_hidden_layers
@@ -717,10 +757,10 @@ def serve_phase(model, cfg, requests, kind, strict):
         emit(row)
         if label == "default":
             main_launches = launches
-    return main_launches
+    return main_launches, out["default"]
 
 
-def profile_phase(model, requests, kind):
+def profile_phase(model, requests, kind, kv_format="bf16"):
     """Where a serving iteration's time goes: the first eight requests on
     a default engine, one window of prefill iterations (every slot runs a
     256-token chunk) and one of pure decode steps. Wall time per
@@ -732,7 +772,7 @@ def profile_phase(model, requests, kind):
     from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
     cfg = ServingConfig(max_slots=8, max_len=2048, block_size=16,
-                        prefill_chunk=256)
+                        prefill_chunk=256, kv_format=kv_format)
     eng = ServingEngine(model, cfg, device=DEV)
     for p, m in requests[:8]:
         eng.submit(p, max_new_tokens=m)
@@ -744,7 +784,10 @@ def profile_phase(model, requests, kind):
     while any(j is not None for j in eng._jobs):
         eng.step()
     decode = window(10)
+    weights = next((m.fmt for m in model.modules() if hasattr(m, "fmt")),
+                   "bfloat16")
     emit({"phase": "profile", "model": "llama2_7b", "dtype": "bfloat16",
+          "weights": weights, "kv_format": kv_format,
           "slots": 8, "prefill_iteration": prefill,
           "decode_iteration": decode, "card": kind})
     del eng
@@ -786,11 +829,451 @@ def generate_phase(model, cfg, requests, kind, strict):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# quantized serving: K5, K7 (dequantizing flash decode) and K9 (quant matmul)
+# ---------------------------------------------------------------------------
+
+QUANT_FORMATS = ("int8", "fp8")
+# Llama-2-7B's (N, K) of q/k/v/o_proj, gate/up_proj, down_proj and lm_head
+QMM_SHAPES = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
+QMM_M = (8, 256)    # a decode step of 8 slots, a 256-token prefill chunk
+
+
+def quantize_cache(t, fmt):
+    """A cache or pool quantized per token per head: (narrow, f32 absmax
+    scales [.., KV])."""
+    from paddle_tpu_torch.quantization.intx import absmax_along, pack_absmax
+
+    amax = absmax_along(t, -1)
+    return pack_absmax(t, amax[..., None], fmt), amax
+
+
+def quant_attention_phase(rng):
+    """K5 and K7 against their plain versions (dequantize, then attend)
+    at the serving shapes, int8 and fp8, bf16 and fp32; SDPA over the
+    dequantized cache is the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.quantization.intx import unpack_absmax
+
+    dev = torch.device(DEV)
+    rows = []
+    B, H, d, max_len, bs = 8, 32, 128, 2048, 16
+    nb = max_len // bs
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        isz = torch.empty((), dtype=dtype).element_size()
+        for fmt in QUANT_FORMATS:
+            for kernel, q_lens in (("flash_decode_attention_quant", (1, 8)),
+                                   ("paged_flash_decode_attention_quant",
+                                    (1, 32, 256))):
+                paged = kernel.startswith("paged")
+                for q_len in q_lens:
+                    for group in (1, 4):
+                        KV = H // group
+                        Bq = 1 if q_len == 256 else B
+                        pos = rng.randint(0, max_len - q_len + 1, Bq)
+                        pos[0] = max_len - q_len
+                        if Bq > 2:
+                            pos[1], pos[2] = 0, 0
+                        pos_t = torch.tensor(pos, dtype=torch.int32,
+                                             device=dev)
+                        q = torch.randn(Bq, q_len, H, d, device=dev).to(dtype)
+                        if paged:
+                            N = Bq * nb + 1
+                            kp, ksc = quantize_cache(torch.randn(
+                                N, bs, KV, d, device=dev), fmt)
+                            vp, vsc = quantize_cache(torch.randn(
+                                N, bs, KV, d, device=dev), fmt)
+                            perm = rng.permutation(N - 1)[:Bq * nb] + 1
+                            bt_np = perm.reshape(Bq, nb).astype("int32")
+                            if Bq > 2:
+                                bt_np[2] = 0
+                            bt = torch.tensor(bt_np, device=dev)
+                            run = lambda: da.paged_flash_decode_attention(  # noqa
+                                q, kp, vp, bt, pos_t, k_scale=ksc,
+                                v_scale=vsc)
+                            plain = lambda: da.paged_flash_decode_attention_ref(  # noqa
+                                q, kp, vp, bt, pos_t, k_scale=ksc,
+                                v_scale=vsc)
+                            kc = da._take_blocks(kp, bt)
+                            vc = da._take_blocks(vp, bt)
+                            kcs = da._take_blocks(ksc, bt)
+                            vcs = da._take_blocks(vsc, bt)
+                            extra = bt.numel() * 4 + Bq * 4
+                        else:
+                            kc, kcs = quantize_cache(torch.randn(
+                                Bq, max_len, KV, d, device=dev), fmt)
+                            vc, vcs = quantize_cache(torch.randn(
+                                Bq, max_len, KV, d, device=dev), fmt)
+                            run = lambda: da.flash_decode_attention(  # noqa
+                                q, kc, vc, pos_t, k_scale=kcs, v_scale=vcs)
+                            plain = lambda: da.flash_decode_attention_ref(  # noqa
+                                q, kc, vc, pos_t, k_scale=kcs, v_scale=vcs)
+                            extra = Bq * 4
+                        got = run()
+                        want = plain()
+                        torch.cuda.synchronize()
+                        err = (got.float() - want.float()).abs().max().item()
+                        ok = err <= ATOL[dname]
+                        lens = [min(int(p) + q_len, max_len) for p in pos]
+                        # library yardstick: SDPA over the cache dequantized
+                        # beforehand, with the same ragged causal mask
+                        kd = unpack_absmax(kc, kcs[..., None], fmt, dtype)
+                        vd = unpack_absmax(vc, vcs[..., None], fmt, dtype)
+                        qs = q.transpose(1, 2)
+                        ks_, vs_ = kd.transpose(1, 2), vd.transpose(1, 2)
+                        lens_t = torch.tensor(lens, device=dev)
+                        qpos = (lens_t - q_len)[:, None] + torch.arange(
+                            q_len, device=dev)[None, :]
+                        mask = (torch.arange(max_len, device=dev)[
+                            None, None, :] <= qpos[:, :, None])[:, None]
+                        lib = lambda: F.scaled_dot_product_attention(  # noqa
+                            qs, ks_, vs_, attn_mask=mask,
+                            enable_gqa=group > 1)
+                        bound, bound_by = attention_bound(
+                            lens, q_len, H, KV, d, isz, extra, dname,
+                            kv_itemsize=1, scale_bytes=4)
+                        row = {"phase": "kernel", "name": kernel,
+                               "kv_format": fmt, "dtype": dname, "B": Bq,
+                               "q_len": q_len, "heads": H, "kv_heads": KV,
+                               "group": group, "head_dim": d,
+                               "max_len": max_len,
+                               "block_size": bs if paged else None,
+                               "pos": [int(p) for p in pos],
+                               "max_abs_err": err, "atol": ATOL[dname],
+                               "ok": ok, "ms": cuda_ms(run, 50),
+                               "plain_ms": cuda_ms(plain, 5),
+                               "library_ms": cuda_ms(lib, 20),
+                               "library": "F.scaled_dot_product_attention "
+                                          "over the dequantized cache",
+                               "bound_ms": bound, "bound_by": bound_by}
+                        emit(row)
+                        rows.append(row)
+                        check(ok, f"{kernel} disagrees with its plain "
+                                  f"version: {json.dumps(row)}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def qmm_bound(M, N, K, isz, dname):
+    """Least time for one quantized matmul: the narrow weight, its
+    scales, x and the output moved once, or 2*M*N*K operations at the
+    activation dtype's peak, whichever is larger."""
+    nbytes = N * K + N * 4 + M * K * isz + M * N * isz
+    t_bytes = nbytes / PEAKS["bw"] * 1e3
+    t_ops = 2 * M * N * K / PEAKS[dname] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def quant_matmul_phase():
+    """K9 against its plain version at Llama-2-7B's linear shapes, a
+    decode step (M 8) and a prefill chunk (M 256), int8 and fp8, bf16 and
+    fp32. The library yardstick is ``torch.matmul`` against the weight
+    dequantized beforehand: the product K9 replaces."""
+    import torch
+
+    from paddle_tpu_torch.kernels import quant_matmul as qm
+    from paddle_tpu_torch.quantization.intx import format_bound, pack_absmax
+
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        isz = torch.empty((), dtype=dtype).element_size()
+        for fmt in QUANT_FORMATS:
+            for N, K in QMM_SHAPES:
+                wf = torch.randn(N, K, device=dev, generator=g)
+                amax = wf.abs().amax(dim=1)
+                w = pack_absmax(wf, amax[:, None], fmt)
+                scale = amax / format_bound(fmt)
+                wd = (w.to(dtype).float() * scale[:, None]).to(dtype)
+                del wf
+                # timed launches cycle through copies of the weight that
+                # together exceed the L2, as the decode step's 225
+                # different weights do
+                ws = [w] + [w.clone() for _ in range(
+                    -(-2 * L2_BYTES // w.numel()) - 1)]
+                wds = [wd] + [wd.clone() for _ in range(
+                    -(-2 * L2_BYTES // (wd.numel() * isz)) - 1)]
+                iw, iwd = itertools.cycle(ws), itertools.cycle(wds)
+                for M in QMM_M:
+                    # outputs near unit scale: atol covers a last-place flip
+                    x = (torch.randn(M, K, device=dev, generator=g)
+                         * (0.5 / K ** 0.5)).to(dtype)
+                    run = lambda: qm.quant_matmul(x, next(iw), scale)  # noqa
+                    plain = lambda: qm.quant_matmul_ref(x, w, scale)  # noqa
+                    lib = lambda: torch.matmul(x, next(iwd).t())  # noqa
+                    got = qm.quant_matmul(x, w, scale)
+                    want = plain()
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    bound, bound_by = qmm_bound(M, N, K, isz, dname)
+                    row = {"phase": "kernel", "name": "quant_matmul",
+                           "weight_format": fmt, "dtype": dname, "M": M,
+                           "N": N, "K": K, "max_abs_err": err,
+                           "atol": ATOL[dname], "ok": err <= ATOL[dname],
+                           "ms": cuda_ms(run, 50),
+                           "plain_ms": cuda_ms(plain, 5),
+                           "library_ms": cuda_ms(lib, 20),
+                           "library": "torch.matmul(x, dequantized W.T)",
+                           "bound_ms": bound, "bound_by": bound_by}
+                    emit(row)
+                    rows.append(row)
+                    check(row["ok"], f"quant_matmul disagrees with its plain "
+                                     f"version: {json.dumps(row)}")
+                del w, wd, ws, wds
+    torch.cuda.empty_cache()
+    return rows
+
+
+def model_bytes(model):
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers()))
+
+
+def serve_quant_phase(cfg, requests, bf16_outputs, kind):
+    """Llama-2-7B (the bf16 serve's seeded weights) converted by
+    ``convert_for_serving`` to int8, served with int8 KV blocks over the
+    same traffic: every request completes, K7 launches once per layer per
+    iteration and K9 225 times per forward, with no fallback;
+    ``generate(kv_format="int8")`` launches K5 once per layer per decode
+    step. Reports tokens/s, KV bytes per token, model bytes, peak memory,
+    agreement with the bf16 engine and teacher-forced agreement. Then
+    the same in fp8 (weights and KV) on four requests. Returns the
+    launch counts of the int8 serve and generate runs."""
+    import torch
+
+    from paddle_tpu_torch.kernels import quant_matmul as qm
+    from paddle_tpu_torch.quantization import convert_for_serving
+
+    L = cfg.num_hidden_layers
+    per_forward = 7 * L + 1          # q/k/v/o, gate/up/down, and lm_head
+    result = {}
+    for fmt, n_req in (("int8", len(requests)), ("fp8", 4)):
+        reqs_in = requests[:n_req]
+        model = seeded_llama(cfg, SEED, DEV, torch.bfloat16).eval()
+        bf16_bytes = model_bytes(model)
+        t0 = time.perf_counter()
+        convert_for_serving(model, fmt=fmt)
+        torch.cuda.synchronize()
+        convert_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        qm.reset_counters()
+        eng, reqs, secs, launches, fallbacks = serve_engine(
+            model, reqs_in, kv_format=fmt)
+        qmm = dict(qm.LAUNCHES)
+        qmm_fb = dict(qm.DISPATCH_FALLBACKS)
+        st = eng.stats()
+        peak = torch.cuda.max_memory_allocated()
+        tag = f"{fmt} serve"
+        for r, (p, m) in zip(reqs, reqs_in):
+            check(r.status == "completed" and len(r.output_tokens) == m,
+                  f"{tag}: request {r} did not complete with {m} tokens")
+        forwards = st["steps"] + st["prefill_chunks"]
+        k7 = launches["paged_flash_decode_attention_quant"]
+        check(k7 == L * forwards,
+              f"{tag}: K7 launched {k7} times, expected {L} x ({st['steps']} "
+              f"steps + {st['prefill_chunks']} chunks) = {L * forwards}")
+        check(launches["paged_flash_decode_attention"] == 0,
+              f"{tag}: the unquantized paged kernel ran: {launches}")
+        check(not fallbacks, f"{tag}: attention fallbacks {fallbacks}")
+        check(qmm["quant_matmul"] == per_forward * forwards,
+              f"{tag}: K9 launched {qmm['quant_matmul']} times, expected "
+              f"{per_forward} x {forwards} forwards")
+        check(not qmm_fb, f"{tag}: quant_matmul fallbacks {qmm_fb}")
+        outputs = [list(r.output_tokens) for r in reqs]
+        gen = sum(len(t) for t in outputs)
+        kb = st["kv_blocks"]
+        row = {"phase": "serve_quant", "model": "llama2_7b",
+               "dtype": "bfloat16", "weights": fmt, "kv_format": fmt,
+               "requests": len(reqs), "decode_steps": st["steps"],
+               "prefill_chunks": st["prefill_chunks"],
+               "preemptions": st["preemptions"],
+               "cow_forks": kb["cow_forks"],
+               "generated_tokens": gen, "seconds": secs,
+               "tokens_per_s": gen / secs,
+               "kv_bytes_per_token": kb["bytes_per_token"],
+               "capacity_vs_bf16": kb["capacity_vs_bf16"],
+               "effective_capacity_tokens": kb["effective_capacity_tokens"],
+               "model_bytes": model_bytes(model),
+               "model_bytes_bf16": bf16_bytes, "convert_seconds": convert_s,
+               "peak_memory_gib": peak / 2**30,
+               "kernel_launches": launches, "quant_matmul_launches": qmm,
+               "fallbacks": fallbacks, "card": kind}
+        del eng
+        torch.cuda.empty_cache()
+        same = [a == b for a, b in zip(outputs, bf16_outputs)]
+        match = [sum(x == y for x, y in zip(a, b))
+                 for a, b in zip(outputs, bf16_outputs)]
+        row["requests_equal_to_bf16_engine"] = sum(same)
+        row["tokens_equal_to_bf16_engine"] = sum(match)
+        row.update(_teacher_forced_all(model, [p for p, _ in reqs_in],
+                                       outputs, tag, strict=False))
+        if fmt == "int8":
+            row["generate"] = quant_generate(model, cfg, requests, fmt)
+            result = {"serve": launches, "qmm": qmm,
+                      "generate": row["generate"]["kernel_launches"]}
+        emit(row)
+        if fmt == "int8":
+            profile_phase(model, requests, kind, kv_format=fmt)
+        del model
+        torch.cuda.empty_cache()
+    return result
+
+
+def quant_generate(model, cfg, requests, fmt):
+    """``generate(kv_format=fmt)`` on two 200-token prompts: K5 serves
+    every decode step (the prefill declines for q_len)."""
+    import torch
+
+    from paddle_tpu_torch.generation import generate
+    from paddle_tpu_torch.kernels import decode_attention as da
+
+    S, N = 200, 32
+    prompts = [p[:S] for p, _ in requests[:2]]
+    torch.cuda.synchronize()
+    da.reset_counters()
+    t0 = time.perf_counter()
+    generate(model, prompts, max_new_tokens=N, kv_format=fmt)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(da.LAUNCHES)
+    fallbacks = dict(da.DISPATCH_FALLBACKS)
+    expect = cfg.num_hidden_layers * (N - 1)
+    k5 = launches["flash_decode_attention_quant"]
+    check(k5 == expect, f"{fmt} generate: K5 launched {k5} times, expected "
+                        f"{cfg.num_hidden_layers} x {N - 1} = {expect}")
+    check(launches["flash_decode_attention"] == 0,
+          f"{fmt} generate: the unquantized kernel ran: {launches}")
+    check(set(fallbacks) <= {"quant_q_len"},
+          f"{fmt} generate: fallbacks {fallbacks}")
+    return {"B": 2, "prompt_len": S, "new_tokens": N, "seconds": secs,
+            "tokens_per_s": 2 * N / secs, "kernel_launches": launches,
+            "fallbacks": fallbacks}
+
+
+def quant_parity_phase(kind):
+    """Llama-2-7B's width at depth 2, fp32, int8 weights and int8 KV
+    blocks: the same requests through the engine on the card and on the
+    CPU (plain versions), from the same converted weights. Checks:
+    ``convert_for_serving`` on the card gives the CPU's bits; greedy
+    tokens are equal; the card's ``generate(kv_format="int8")`` equals
+    the card's engine; the first forward's logits (8 prompt tokens, K9's
+    small-M body) agree within 1e-3 over an fp32 cache. Over an int8
+    cache (K5) the two devices quantize K/V computed in another
+    summation order, so a value near a rounding tie can land one step
+    apart: there the count of such values is reported and the logits are
+    held to 1e-3 of their largest magnitude, the measure of the JAX
+    package's own quantized-logits test."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.generation import (generate, make_cached_runner,
+                                             make_kv_caches)
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.kernels import quant_matmul as qm
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.quantization import convert_for_serving
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
+    cpu = seeded_llama(cfg, SEED + 2, "cpu", torch.float32).eval()
+    gpu = LlamaForCausalLM(cfg, device=DEV, dtype=torch.float32).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    convert_for_serving(cpu, fmt="int8")
+    convert_for_serving(gpu, fmt="int8")
+    # conversion on the card against the CPU's: reported; the parity
+    # below runs both devices on the CPU's converted weights
+    gst, cst = gpu.state_dict(), cpu.state_dict()
+    qdiff = sum(int((gst[k].cpu().view(torch.uint8) != cst[k].view(
+        torch.uint8)).sum()) for k in cst if k.endswith("qweight")) \
+        + sum(int((gst[k].cpu() != cst[k]).sum()) for k in cst
+              if k.endswith(".scale"))
+    gpu.load_state_dict(cst)
+    rng = np.random.RandomState(SEED + 2)
+    prompts = [rng.randint(1, cfg.vocab_size, n).tolist()
+               for n in (40, 200, 90)]
+    new = [8, 8, 8]
+    outs = {}
+    counts = {}
+    for name, model, dev in (("cuda", gpu, DEV), ("cpu", cpu, "cpu")):
+        scfg = ServingConfig(max_slots=2, max_len=512, block_size=16,
+                             prefill_chunk=128, kv_format="int8")
+        eng = ServingEngine(model, scfg, device=dev)
+        da.reset_counters()
+        qm.reset_counters()
+        reqs = [eng.submit(p, max_new_tokens=n) for p, n in zip(prompts, new)]
+        eng.run_until_idle()
+        check(all(r.status == "completed" for r in reqs),
+              f"quant_parity: {name} engine left requests unfinished")
+        outs[name] = [list(r.output_tokens) for r in reqs]
+        counts[name] = {"attention": dict(da.LAUNCHES),
+                        "quant_matmul": dict(qm.LAUNCHES)}
+        del eng
+    gen = [generate(gpu, [p], max_new_tokens=n, kv_format="int8")[0, len(p):]
+           .tolist() for p, n in zip(prompts, new)]
+    # first forward: 8 prompt tokens over an fp32 and an int8 cache
+    ids = prompts[0][:8]
+    logits, kv = {}, {}
+    for fmt in ("bf16", "int8"):
+        for name, model, dev in (("cuda", gpu, DEV), ("cpu", cpu, "cpu")):
+            caches = make_kv_caches(cfg, 1, 16, torch.float32, fmt,
+                                    device=dev)
+            lg, caches = make_cached_runner(model)(
+                torch.tensor([ids], device=dev), caches, 0)
+            logits[fmt, name] = lg.float().cpu()
+            kv[fmt, name] = [c[k].cpu().view(torch.uint8) if fmt == "int8"
+                             else None for c in caches for k in ("k", "v")]
+    err = {fmt: (logits[fmt, "cuda"] - logits[fmt, "cpu"]).abs().max().item()
+           for fmt in ("bf16", "int8")}
+    rel = err["int8"] / logits["int8", "cpu"].abs().max().item()
+    flips = sum(int((a != b).sum()) for a, b in zip(kv["int8", "cuda"],
+                                                   kv["int8", "cpu"]))
+    row = {"phase": "quant_parity", "dtype": "float32", "layers": 2,
+           "weights": "int8", "kv_format": "int8",
+           "requests": len(prompts), "tokens_cuda": outs["cuda"],
+           "tokens_cpu": outs["cpu"],
+           "tokens_equal": outs["cuda"] == outs["cpu"],
+           "generate_equals_engine": gen == outs["cuda"],
+           "first_forward_logits_max_abs_err_fp32_kv": err["bf16"],
+           "logits_atol": 1e-3,
+           "first_forward_logits_max_abs_err_int8_kv": err["int8"],
+           "first_forward_logits_err_int8_kv_over_max_logit": rel,
+           "logits_rtol_of_max": 1e-3,
+           "int8_kv_values_differing_card_vs_cpu": flips,
+           "int8_kv_values": sum(t.numel() for t in kv["int8", "cpu"]),
+           "qweight_scale_elements_differing_card_vs_cpu_conversion": qdiff,
+           "kernel_launches_cuda": counts["cuda"], "card": kind}
+    emit(row)
+    check(outs["cuda"] == outs["cpu"],
+          f"card and CPU int8 engines disagree: {outs}")
+    check(gen == outs["cuda"],
+          f"card generate(kv_format='int8') != card engine: {gen} vs "
+          f"{outs['cuda']}")
+    check(qdiff == 0, f"convert_for_serving on the card differs from the "
+                      f"CPU's in {qdiff} elements")
+    check(err["bf16"] <= 1e-3, f"first-forward logits (fp32 cache) differ "
+                               f"by {err['bf16']}")
+    check(rel <= 1e-3, f"first-forward logits (int8 cache) differ by "
+                       f"{err['int8']}, {rel} of the largest logit")
+    check(counts["cuda"]["attention"]["paged_flash_decode_attention_quant"]
+          > 0 and counts["cuda"]["quant_matmul"]["quant_matmul"] > 0,
+          f"the fp32 card engine did not run K7 and K9: {counts['cuda']}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
 def summary(rows, serve_launches, gen_launches, flash_rows,
-            train_launches):
+            train_launches, quant_rows, quant_launches):
     """One object per kernel, with the numbers of its main-path shape:
-    for K1-K3 the training shape, for K4/K6 the decode step (bf16, group
-    1 as in Llama-2-7B)."""
+    for K1-K3 the training shape, for K4-K7 the decode step (bf16, group
+    1 as in Llama-2-7B; int8 for K5/K7), for K9 q_proj's weight in int8
+    at a decode step of 8 slots."""
     out = []
     for name, (tag, replaces) in FLASH_META.items():
         mine = [r for r in flash_rows if r["name"] == name]
@@ -816,13 +1299,35 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
                         "(_paged_flash_decode, _decode_kernel :336)",
             "tpu_counterpart": "K6", "launches": serve_launches,
             "main": dict(dtype="bfloat16", q_len=1, group=1)},
+        "flash_decode_attention_quant": {
+            "replaces": "paddle_tpu/pallas_kernels/decode_attention.py:491 "
+                        "(_flash_decode quant, _decode_kernel_quant :371)",
+            "tpu_counterpart": "K5", "launches": quant_launches["generate"],
+            "main": dict(dtype="bfloat16", kv_format="int8", q_len=1,
+                         group=1)},
+        "paged_flash_decode_attention_quant": {
+            "replaces": "paddle_tpu/pallas_kernels/decode_attention.py:685 "
+                        "(_paged_flash_decode quant, _decode_kernel_quant "
+                        ":371)",
+            "tpu_counterpart": "K7", "launches": quant_launches["serve"],
+            "main": dict(dtype="bfloat16", kv_format="int8", q_len=1,
+                         group=1)},
+        "quant_matmul": {
+            "replaces": "paddle_tpu/pallas_kernels/quant_matmul.py:193 "
+                        "(quant_matmul, _qmm_kernel :126)",
+            "tpu_counterpart": "K9", "launches": quant_launches["qmm"],
+            "source": "paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
+            "main": dict(dtype="bfloat16", weight_format="int8", M=8,
+                         N=4096, K=4096)},
     }
+    rows = rows + quant_rows
     for name, m in meta.items():
         mine = [r for r in rows if r["name"] == name]
         main = next(r for r in mine
-                    if all(r[k] == v for k, v in m["main"].items()))
+                    if all(r.get(k) == v for k, v in m["main"].items()))
         out.append({"name": name, "route": "cuda",
-                    "source": "paddle_tpu_torch/kernels/csrc/decode_attention.cu",
+                    "source": m.get("source", "paddle_tpu_torch/kernels/"
+                                              "csrc/decode_attention.cu"),
                     "replaces": m["replaces"],
                     "tpu_counterpart": m["tpu_counterpart"],
                     "launches": m["launches"][name],
@@ -878,6 +1383,8 @@ def main(argv=None) -> int:
 
     rng = np.random.RandomState(SEED)
     rows = kernel_phase(rng)
+    quant_rows = quant_attention_phase(np.random.RandomState(SEED + 4)) \
+        + quant_matmul_phase()
     flash_rows = flash_kernel_phase(rng)
 
     cfg = LlamaConfig.llama2_7b(dtype="bfloat16")
@@ -892,7 +1399,8 @@ def main(argv=None) -> int:
     # rounding across 32 random layers moves logits by more than the 0.1
     # gap, so the same weights in fp32 carry the asserted check
     requests = traffic(rng, cfg.vocab_size)
-    serve_launches = serve_phase(model, cfg, requests, kind, strict=False)
+    serve_launches, bf16_outputs = serve_phase(model, cfg, requests, kind,
+                                               strict=False)
     gen_launches = generate_phase(model, cfg, requests, kind, strict=False)
     profile_phase(model, requests, kind)
     model.float()
@@ -902,11 +1410,16 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
 
+    # quantized serving: the same seeded weights converted to int8 (then
+    # fp8) weight-only linears over int8 (fp8) KV blocks
+    quant_launches = serve_quant_phase(cfg, requests, bf16_outputs, kind)
+    quant_parity_phase(kind)
+
     train_launches = train_phase(kind)
     train_parity_phase(kind)
 
     emit({"kernels": summary(rows, serve_launches, gen_launches, flash_rows,
-                             train_launches)})
+                             train_launches, quant_rows, quant_launches)})
     emit(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -9,6 +9,15 @@ arrays are immutable, the writes here update the buffers IN PLACE
 (``index_copy_`` / slice assignment) and hand the same tensors back, so
 a step costs no copy of the cache.
 
+``kv_format="int8"`` / ``"fp8"`` stores K/V narrow (int8, float8 e4m3)
+with per-token-per-head f32 absmax scales ``ks``/``vs`` beside them
+([.., kv_heads], the cache's shape without the head dimension): a write
+quantizes each token's head vector by its own absmax
+(``*_write_quant``), the flash-decode kernels dequantize where they
+load, and the plain attention reads a dequantized view
+(``dequantize_kv_buffer``, ``gather_paged_kv_dequant``). The storage
+dtype is the format (``kv_format_of``).
+
 ``generate`` is the greedy path: equal-length prompts, one cached
 forward per token in a Python loop, EOS masking. Sampling needs the
 JAX package's threefry key chain ported bit for bit and comes with a
@@ -23,10 +32,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .quantization.intx import (KV_FORMATS, absmax_along, format_dtype,
+                                format_itemsize, format_of_dtype,
+                                pack_absmax, unpack_absmax)
+
 __all__ = ["GenerationConfig", "generate", "make_kv_caches",
            "make_paged_kv_pools", "kv_cache_write", "paged_kv_cache_write",
-           "gather_paged_kv", "update_static_kv_cache", "make_cached_runner",
-           "kv_cache_bytes_per_token"]
+           "kv_cache_write_quant", "paged_kv_cache_write_quant",
+           "gather_paged_kv", "gather_paged_kv_dequant",
+           "dequantize_kv_buffer", "update_static_kv_cache",
+           "make_cached_runner", "kv_cache_bytes_per_token", "kv_format_of"]
 
 
 def _is_per_row(position_offset) -> bool:
@@ -36,12 +51,25 @@ def _is_per_row(position_offset) -> bool:
         and position_offset.dim() == 1
 
 
-def _bf16_only(kv_format: str) -> None:
+def _check_format(kv_format: str) -> None:
+    if kv_format not in KV_FORMATS:
+        raise ValueError(
+            f"kv_format must be one of {KV_FORMATS}, got {kv_format!r}")
     if kv_format != "bf16":
-        raise NotImplementedError(
-            f"kv_format={kv_format!r}: quantized KV caches come with the "
-            "quantized-serving slice; only 'bf16' (the model's own dtype) "
-            "is ported")
+        format_dtype(kv_format)  # actionable error when fp8 is absent
+
+
+def kv_format_of(buf) -> str:
+    """Storage format of a KV buffer, from its dtype (int8/fp8 storage IS
+    the format; anything else is "bf16", the unquantized cache)."""
+    return format_of_dtype(buf.dtype)
+
+
+def _bytes(t):
+    """A narrow buffer as its bytes (index and copy kernels for fp8 are
+    not in every build); other buffers as they are."""
+    return t.view(torch.uint8) if t.element_size() == 1 \
+        and t.is_floating_point() else t
 
 
 def kv_cache_write(buf, new, position_offset: int):
@@ -50,6 +78,28 @@ def kv_cache_write(buf, new, position_offset: int):
     off = int(position_offset)
     buf[:, off:off + new.shape[1]] = new.to(buf.dtype)
     return buf
+
+
+def _quantize_step(new, kv_format: str):
+    """A step's [b, s, h, d] block quantized per token per head: (narrow
+    values, f32 absmax [b, s, h])."""
+    amax = absmax_along(new, -1)
+    return pack_absmax(new, amax[..., None], kv_format), amax
+
+
+def kv_cache_write_quant(buf, scales, new, position_offset: int,
+                         kv_format: str = "int8"):
+    """Contiguous twin of ``paged_kv_cache_write_quant``: quantize the
+    step's [b, s, h, d] block per token per head and write the values
+    into the int8/fp8 [b, max_len, h, d] buffer and the absmax into the
+    [b, max_len, h] f32 scales at ``position_offset``; in place. Returns
+    (buf, scales)."""
+    off = int(position_offset)
+    q, amax = _quantize_step(new, kv_format)
+    s = new.shape[1]
+    _bytes(buf)[:, off:off + s] = _bytes(q)
+    scales[:, off:off + s] = amax.to(scales.dtype)
+    return buf, scales
 
 
 def _causal_cache_mask(position_offset, s: int, max_len: int, device):
@@ -76,36 +126,65 @@ def _causal_cache_mask(position_offset, s: int, max_len: int, device):
 
 def kv_cache_bytes_per_token(config, kv_format: str = "bf16",
                              dtype=torch.float32) -> int:
-    """Device bytes one cached token costs across all layers (K + V)."""
-    _bf16_only(kv_format)
+    """Device bytes one cached token costs across all layers: K + V
+    values and, for quantized formats, their per-token-per-head f32
+    absmax scales."""
+    _check_format(kv_format)
+    n_kv = config.num_key_value_heads
     head_dim = config.hidden_size // config.num_attention_heads
-    per = config.num_key_value_heads * head_dim \
-        * torch.empty((), dtype=dtype).element_size()
+    if kv_format == "bf16":
+        per = n_kv * head_dim * torch.empty((), dtype=dtype).element_size()
+    else:
+        per = n_kv * (head_dim * format_itemsize(kv_format) + 4)
     return 2 * per * config.num_hidden_layers
+
+
+def _zeros(shape, dtype, device):
+    """Zeros of ``dtype``; narrow floats are made as zero bytes."""
+    if torch.empty((), dtype=dtype).element_size() == 1 \
+            and dtype.is_floating_point:
+        return torch.zeros(shape, dtype=torch.uint8,
+                           device=device).view(dtype)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _make_layers(config, lead, dtype, kv_format, device):
+    """Per-layer {"k", "v"} zeros [*lead, kv_heads, head_dim], plus
+    {"ks", "vs"} f32 scales [*lead, kv_heads] for a quantized format."""
+    _check_format(kv_format)
+    n_kv = config.num_key_value_heads
+    shape = tuple(lead) + (n_kv,
+                           config.hidden_size // config.num_attention_heads)
+    if kv_format == "bf16":
+        return [{"k": _zeros(shape, dtype, device),
+                 "v": _zeros(shape, dtype, device)}
+                for _ in range(config.num_hidden_layers)]
+    sdt = format_dtype(kv_format)
+    sshape = tuple(lead) + (n_kv,)
+    return [{"k": _zeros(shape, sdt, device), "v": _zeros(shape, sdt, device),
+             "ks": _zeros(sshape, torch.float32, device),
+             "vs": _zeros(sshape, torch.float32, device)}
+            for _ in range(config.num_hidden_layers)]
 
 
 def make_kv_caches(config, batch_size: int, max_len: int, dtype,
                    kv_format: str = "bf16", device=None):
     """Per-layer contiguous {"k", "v"} zeros [batch_size, max_len,
-    num_key_value_heads, head_dim]."""
-    _bf16_only(kv_format)
-    shape = (batch_size, max_len, config.num_key_value_heads,
-             config.hidden_size // config.num_attention_heads)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in range(config.num_hidden_layers)]
+    num_key_value_heads, head_dim]; ``kv_format="int8"``/``"fp8"`` stores
+    narrow values plus ``ks``/``vs`` f32 scales [batch_size, max_len,
+    num_key_value_heads]."""
+    return _make_layers(config, (batch_size, max_len), dtype, kv_format,
+                        device)
 
 
 def make_paged_kv_pools(config, num_blocks: int, block_size: int, dtype,
                         kv_format: str = "bf16", device=None):
     """Per-layer paged {"k", "v"} zeros [num_blocks, block_size,
-    num_key_value_heads, head_dim]. Block 0 is the dump block."""
-    _bf16_only(kv_format)
-    shape = (num_blocks, block_size, config.num_key_value_heads,
-             config.hidden_size // config.num_attention_heads)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in range(config.num_hidden_layers)]
+    num_key_value_heads, head_dim]; a quantized format adds ``ks``/``vs``
+    f32 scale pools [num_blocks, block_size, num_key_value_heads] riding
+    the same blocks. Block 0 is the dump block."""
+    return _make_layers(config, (num_blocks, block_size), dtype, kv_format,
+                        device)
 
 
 def _paged_flat_indices(bt, po, vl, bs: int, b: int, s: int, device):
@@ -146,23 +225,66 @@ def paged_kv_cache_write(pool, new, block_table, position_offset,
 
 
 def _scatter_flat(pool, new, idx):
-    """Write [b, s, h, d] ``new`` into the pool at flat slots ``idx``
+    """Write [b, s, ...] ``new`` into the pool at flat slots ``idx``
     [b, s] (in place); returns the pool."""
     num_blocks, bs = pool.shape[0], pool.shape[1]
     b, s = new.shape[0], new.shape[1]
-    flat = pool.view((num_blocks * bs,) + tuple(pool.shape[2:]))
+    flat = _bytes(pool).view((num_blocks * bs,) + tuple(pool.shape[2:]))
+    src = _bytes(new.to(pool.dtype))
     flat.index_copy_(0, idx.reshape(-1),
-                     new.to(pool.dtype).reshape((b * s,) + tuple(new.shape[2:])))
+                     src.reshape((b * s,) + tuple(new.shape[2:])))
     return pool
+
+
+def _scatter_flat_quant(pool, scales, new, idx, kv_format: str):
+    """Quantize [b, s, h, d] ``new`` per token per head and write values
+    and absmax scales at flat slots ``idx`` (in place)."""
+    q, amax = _quantize_step(new, kv_format)
+    _scatter_flat(pool, q, idx)
+    _scatter_flat(scales, amax, idx)
+    return pool, scales
+
+
+def paged_kv_cache_write_quant(pool, scales, new, block_table,
+                               position_offset, valid_len=None,
+                               kv_format: str = "int8"):
+    """The quantizing scatter: quantize this step's [b, s, h, d] K-or-V
+    block PER TOKEN PER HEAD (absmax over d, so a later token never
+    forces a written one to be requantized) and scatter values into the
+    int8/fp8 pool and scales into the [num_blocks, block_size, h] f32
+    scale pool through the block table, in place; pads past
+    ``valid_len`` go to the dump block. Returns (pool, scales)."""
+    idx = _paged_flat_indices(block_table, position_offset, valid_len,
+                              pool.shape[1], new.shape[0], new.shape[1],
+                              pool.device)
+    return _scatter_flat_quant(pool, scales, new, idx, kv_format)
 
 
 def gather_paged_kv(pool, block_table):
     """The slot-major [b, nb * block_size, h, d] view of the pool through
     the block tables (the plain-attention read path)."""
     bt = block_table.to(pool.device).long()
-    out = pool[bt]
+    out = _bytes(pool)[bt]
     b, nb, bs = out.shape[0], out.shape[1], out.shape[2]
-    return out.reshape((b, nb * bs) + tuple(pool.shape[2:]))
+    return out.reshape((b, nb * bs) + tuple(pool.shape[2:])).view(pool.dtype)
+
+
+def dequantize_kv_buffer(buf, scales, out_dtype=torch.float32):
+    """Dense dequantized view of a quantized contiguous cache (the plain
+    read path): [b, max_len, h, d] storage + [b, max_len, h] absmax
+    scales -> float [b, max_len, h, d]."""
+    return unpack_absmax(buf, scales[..., None], kv_format_of(buf),
+                         out_dtype)
+
+
+def gather_paged_kv_dequant(pool, scales, block_table,
+                            out_dtype=torch.float32):
+    """Quantized-pool twin of ``gather_paged_kv``: the slot-major view,
+    dequantized (on the kernel path the dequant happens in the kernel
+    and this copy never exists)."""
+    return unpack_absmax(gather_paged_kv(pool, block_table),
+                         gather_paged_kv(scales, block_table)[..., None],
+                         kv_format_of(pool), out_dtype)
 
 
 def _update_paged_kv_cache(kv_cache: dict, k, v, position_offset,
@@ -173,13 +295,26 @@ def _update_paged_kv_cache(kv_cache: dict, k, v, position_offset,
         idx = _paged_flat_indices(bt, position_offset, kv_cache.get("valid"),
                                   kv_cache["k"].shape[1], k.shape[0],
                                   k.shape[1], k.device)
-    ck = _scatter_flat(kv_cache["k"], k, idx)
-    cv = _scatter_flat(kv_cache["v"], v, idx)
-    new_cache = dict(kv_cache, k=ck, v=cv)
+    quant = "ks" in kv_cache
+    if quant:
+        fmt = kv_format_of(kv_cache["k"])
+        ck, cks = _scatter_flat_quant(kv_cache["k"], kv_cache["ks"], k, idx,
+                                      fmt)
+        cv, cvs = _scatter_flat_quant(kv_cache["v"], kv_cache["vs"], v, idx,
+                                      fmt)
+        new_cache = dict(kv_cache, k=ck, v=cv, ks=cks, vs=cvs)
+    else:
+        ck = _scatter_flat(kv_cache["k"], k, idx)
+        cv = _scatter_flat(kv_cache["v"], v, idx)
+        new_cache = dict(kv_cache, k=ck, v=cv)
     max_len = int(bt.shape[1]) * int(ck.shape[1])
     mask = _causal_cache_mask(position_offset, k.shape[1], max_len,
                               k.device) if build_mask else None
     if gather:
+        if quant:
+            return (gather_paged_kv_dequant(ck, cks, bt, k.dtype),
+                    gather_paged_kv_dequant(cv, cvs, bt, k.dtype),
+                    new_cache, mask)
         return gather_paged_kv(ck, bt), gather_paged_kv(cv, bt), new_cache, mask
     return ck, cv, new_cache, mask
 
@@ -196,10 +331,27 @@ def update_static_kv_cache(kv_cache: dict, k, v, position_offset,
     caller computed them once for every layer; with
     ``gather=True`` the slot-major view is materialized for the plain
     attention, with ``gather=False`` the pools come back as they are
-    for the paged kernel."""
+    for the paged kernel.
+
+    Quantized caches (``ks``/``vs`` in the dict) quantize the write; the
+    gathered view comes back dequantized into k's dtype, the raw view as
+    the narrow buffers (their scales are in ``new_cache``)."""
     if "bt" in kv_cache:
         return _update_paged_kv_cache(kv_cache, k, v, position_offset,
                                       build_mask, gather)
+    if "ks" in kv_cache:
+        fmt = kv_format_of(kv_cache["k"])
+        ck, cks = kv_cache_write_quant(kv_cache["k"], kv_cache["ks"], k,
+                                       position_offset, fmt)
+        cv, cvs = kv_cache_write_quant(kv_cache["v"], kv_cache["vs"], v,
+                                       position_offset, fmt)
+        new_cache = dict(kv_cache, k=ck, v=cv, ks=cks, vs=cvs)
+        mask = _causal_cache_mask(position_offset, k.shape[1], ck.shape[1],
+                                  k.device) if build_mask else None
+        if gather:
+            return (dequantize_kv_buffer(ck, cks, k.dtype),
+                    dequantize_kv_buffer(cv, cvs, k.dtype), new_cache, mask)
+        return ck, cv, new_cache, mask
     ck = kv_cache_write(kv_cache["k"], k, position_offset)
     cv = kv_cache_write(kv_cache["v"], v, position_offset)
     mask = _causal_cache_mask(position_offset, k.shape[1], ck.shape[1],
@@ -251,15 +403,20 @@ def _no_sampling(do_sample: bool) -> None:
 def generate(model, input_ids, max_new_tokens: int = 32,
              do_sample: bool = False, temperature: float = 1.0,
              top_k: int = 0, top_p: float = 1.0,
-             eos_token_id: Optional[int] = None, seed: int = 0):
+             eos_token_id: Optional[int] = None, seed: int = 0,
+             kv_format: str = "bf16"):
     """Greedy continuations of equal-length prompts ``input_ids`` [B, S];
     returns [B, S + N] int64 on the model's device.
 
     The prompt is prefilled in one cached forward, then one cached
     forward per token. With ``eos_token_id`` the loop stops once every
     row has emitted it, and everything after a row's first EOS is EOS
-    (the output keeps its [B, S + N] shape)."""
+    (the output keeps its [B, S + N] shape). ``kv_format="int8"`` /
+    ``"fp8"`` stores the KV cache quantized (per-token-per-head absmax
+    scales); the decode steps then run the quantized flash-decode
+    kernel."""
     _no_sampling(do_sample)
+    _check_format(kv_format)
     cfg = GenerationConfig(max_new_tokens, do_sample, temperature, top_k,
                            top_p, eos_token_id, seed)
     device = next(model.parameters()).device
@@ -279,7 +436,8 @@ def generate(model, input_ids, max_new_tokens: int = 32,
         return ids
     dtype = next(model.parameters()).dtype
     run = make_cached_runner(model)
-    caches = make_kv_caches(config, B, max_len, dtype, device=device)
+    caches = make_kv_caches(config, B, max_len, dtype, kv_format,
+                            device=device)
     logits, caches = run(ids, caches, 0)
     token = logits[:, -1].argmax(dim=-1)
     out = [token]

@@ -30,8 +30,14 @@ BUILD_DIR = os.path.join(_HERE, "build")
 # source file -> the C entry points it exports and their ctypes argtypes
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
+    # q k v ks vs pos bt o/m/l partials out, then (bf16, kv storage, B,
+    # q_len, H, KV, D, max_len, bs, nb, n_split, split_keys, rows)
     "decode_attention.cu": {
-        "paddle_flash_decode": [_P] * 9 + [_I] * 12 + [_F, _P],
+        "paddle_flash_decode": [_P] * 11 + [_I] * 13 + [_F, _P],
+    },
+    # x w scale out, then (bf16, fp8, M, N, K)
+    "quant_matmul.cu": {
+        "paddle_quant_matmul": [_P] * 4 + [_I] * 5 + [_P],
     },
     # pointers, then an int64 stride array, then (bf16, B, S, H, D, causal)
     "flash_attention.cu": {

@@ -4,7 +4,8 @@
 // Replaces the TPU kernels of paddle_tpu/pallas_kernels/decode_attention.py:
 //   _flash_decode        (contiguous cache, body _decode_kernel -> _cell_partial)
 //   _paged_flash_decode  (block-table pool, same body, table-resolved K/V)
-// in their causal, unquantized form.
+// in their causal form, unquantized (K4, K6) and quantized (K5, K7: the
+// body _decode_kernel_quant, whose prologue dequantizes int8/fp8 K/V).
 //
 // What it computes (the contract of _cell_partial and the XLA combine):
 //   query row r = i * group + g of kv head h is query token i of head
@@ -39,10 +40,23 @@
 //   - each split writes an (o, m, l) partial; a second small launch
 //     merges them with the log-sum-exp of decode_attention.py:505-509.
 // The arithmetic is plain fp32 FMA; wgmma / TMA are later work.
+//
+// Quantized caches (K5, K7): K/V are stored as int8 or fp8 e4m3 (the
+// storage type S, beside the compute type T of q) with one f32 absmax
+// scale per (token, kv head), indexed like a K/V row without the D
+// factor. Each value is dequantized where it is loaded, in the TPU
+// prologue's order: widened to f32, times its scale, DIVIDED by the
+// bound (127 or 448), then rounded to T (astype(q.dtype) at
+// decode_attention.py:398/:400; a no-op for fp32) before it is used as
+// f32. Only the narrow bytes and the scales cross device memory, about
+// half of a bf16 cache's bytes at head_dim 128.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -99,6 +113,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <int BYTES>
 struct Raw;
 template <>
+struct Raw<2> {
+  using type = unsigned short;
+};
+template <>
 struct Raw<4> {
   using type = unsigned int;
 };
@@ -115,6 +133,34 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+
+// the absmax bound of a narrow storage type (quantization/intx.py)
+template <typename S>
+__device__ __forceinline__ float kv_bound();
+template <>
+__device__ __forceinline__ float kv_bound<int8_t>() {
+  return 127.f;
+}
+template <>
+__device__ __forceinline__ float kv_bound<__nv_fp8_e4m3>() {
+  return 448.f;
+}
+
+// x rounded to T and widened back (round to nearest even for bf16)
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
 // E consecutive values at p (aligned to their size) as floats, one load.
 template <typename T, int E>
@@ -124,6 +170,23 @@ __device__ __forceinline__ void load_vals(const T* p, float* out) {
   const T* v = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int e = 0; e < E; ++e) out[e] = to_f(v[e]);
+}
+
+// E consecutive K or V values of one cached row as floats. S == T: the
+// values as stored. S narrow (int8 / fp8): the dequant prologue of
+// _decode_kernel_quant, (f32(q) * s / bound) rounded to T, with s the
+// row's absmax scale.
+template <typename S, typename T, int E>
+__device__ __forceinline__ void load_kv(const S* p, float s, float* out) {
+  if constexpr (std::is_same<S, T>::value) {
+    load_vals<T, E>(p, out);
+  } else {
+    float raw[E];
+    load_vals<S, E>(p, raw);
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      out[e] = round_to<T>(raw[e] * s / kv_bound<S>());
+  }
 }
 
 // Row index (in units of D elements) of key kpos of kv head kvh.
@@ -157,10 +220,13 @@ constexpr size_t partial_smem_bytes() {
 // 32 keys at a time through shared memory. Both products are register-
 // tiled: a thread scores 4 rows x 4 keys and accumulates 8 rows x D/16
 // columns, so each shared-memory read feeds several FMAs.
-template <typename T, int D, bool PAGED>
+template <typename T, typename S, int D, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
-    flash_decode_partial(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const int* __restrict__ pos,
+    flash_decode_partial(const T* __restrict__ q, const S* __restrict__ k,
+                         const S* __restrict__ v,
+                         const float* __restrict__ ks,
+                         const float* __restrict__ vs,
+                         const int* __restrict__ pos,
                          const int* __restrict__ bt,
                          float* __restrict__ o_part,
                          float* __restrict__ m_part,
@@ -259,10 +325,16 @@ __global__ void __launch_bounds__(kThreads)
       const int c = (idx % DV) * VN;
       float fk[VN], fv[VN];
       if (j < kbv) {
-        const long long off =
-            kv_row<PAGED>(b, kc + j, kvh, KV, max_len, bt, bs, nb) * D + c;
-        Vec<T>::unpack(*reinterpret_cast<const uint4*>(k + off), fk);
-        Vec<T>::unpack(*reinterpret_cast<const uint4*>(v + off), fv);
+        const long long row =
+            kv_row<PAGED>(b, kc + j, kvh, KV, max_len, bt, bs, nb);
+        const long long off = row * D + c;
+        float sk = 1.f, sv = 1.f;
+        if constexpr (!std::is_same<S, T>::value) {
+          sk = ks[row];
+          sv = vs[row];
+        }
+        load_kv<S, T, VN>(k + off, sk, fk);
+        load_kv<S, T, VN>(v + off, sv, fv);
       } else {
 #pragma unroll
         for (int e = 0; e < VN; ++e) fk[e] = fv[e] = 0.f;
@@ -376,10 +448,12 @@ __global__ void __launch_bounds__(kThreads)
 // staged in shared memory, and every warp works even for one query row.
 // The four warps' (m, l, acc) merge through shared memory into the same
 // partial layout as flash_decode_partial.
-template <typename T, int D, int SR, bool PAGED>
+template <typename T, typename S, int D, int SR, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
-    flash_decode_rows(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const int* __restrict__ pos,
+    flash_decode_rows(const T* __restrict__ q, const S* __restrict__ k,
+                      const S* __restrict__ v, const float* __restrict__ ks,
+                      const float* __restrict__ vs,
+                      const int* __restrict__ pos,
                       const int* __restrict__ bt, float* __restrict__ o_part,
                       float* __restrict__ m_part, float* __restrict__ l_part,
                       int q_len, int H, int KV, int max_len, int bs, int nb,
@@ -438,11 +512,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (kc + u < k_end) {
-        const long long off =
-            kv_row<PAGED>(b, kc + u, kvh, KV, max_len, bt, bs, nb) * D +
-            lane * E;
-        load_vals<T, E>(k + off, kx[u]);
-        load_vals<T, E>(v + off, vx[u]);
+        const long long row =
+            kv_row<PAGED>(b, kc + u, kvh, KV, max_len, bt, bs, nb);
+        const long long off = row * D + lane * E;
+        float sk = 1.f, sv = 1.f;
+        if constexpr (!std::is_same<S, T>::value) {
+          sk = ks[row];
+          sv = vs[row];
+        }
+        load_kv<S, T, E>(k + off, sk, kx[u]);
+        load_kv<S, T, E>(v + off, sv, vx[u]);
       } else {
 #pragma unroll
         for (int e = 0; e < E; ++e) kx[u][e] = vx[u][e] = 0.f;
@@ -554,6 +633,8 @@ struct Args {
   const void* q;
   const void* k;
   const void* v;
+  const float* ks;
+  const float* vs;
   const int* pos;
   const int* bt;
   float* o_part;
@@ -564,10 +645,10 @@ struct Args {
   float scale;
 };
 
-template <typename T, int D, bool PAGED>
+template <typename T, typename S, int D, bool PAGED>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = partial_smem_bytes<D>();
-  auto kern = flash_decode_partial<T, D, PAGED>;
+  auto kern = flash_decode_partial<T, S, D, PAGED>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -578,8 +659,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int gq = a.q_len * (a.H / a.KV);
   const dim3 grid(a.n_split, (gq + ROWS - 1) / ROWS, a.B * a.KV);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.pos, a.bt, a.o_part, a.m_part, a.l_part,
+      static_cast<const T*>(a.q), static_cast<const S*>(a.k),
+      static_cast<const S*>(a.v), a.ks, a.vs, a.pos, a.bt, a.o_part,
+      a.m_part, a.l_part,
       a.q_len, a.H, a.KV, a.max_len, a.bs, a.nb, a.split_keys, a.scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -589,14 +671,15 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int D, int SR, bool PAGED>
+template <typename T, typename S, int D, int SR, bool PAGED>
 cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
   const int gq = a.q_len * (a.H / a.KV);
   if (gq > SR) return cudaErrorInvalidValue;
   const dim3 grid(a.n_split, 1, a.B * a.KV);
-  flash_decode_rows<T, D, SR, PAGED><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.pos, a.bt, a.o_part, a.m_part, a.l_part,
+  flash_decode_rows<T, S, D, SR, PAGED><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const S*>(a.k),
+      static_cast<const S*>(a.v), a.ks, a.vs, a.pos, a.bt, a.o_part,
+      a.m_part, a.l_part,
       a.q_len, a.H, a.KV, a.max_len, a.bs, a.nb, a.split_keys, a.scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -608,20 +691,32 @@ cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
 
 // rows 1, 2, 4, 8: the small-bundle kernel (one tile); 64: the tiled
 // kernel (ROWS query rows per block)
-template <typename T, int D, bool PAGED>
+template <typename T, typename S, int D, bool PAGED>
 cudaError_t by_rows(const Args& a, int rows, cudaStream_t stream) {
-  if (rows == 1) return launch_rows<T, D, 1, PAGED>(a, stream);
-  if (rows == 2) return launch_rows<T, D, 2, PAGED>(a, stream);
-  if (rows == 4) return launch_rows<T, D, 4, PAGED>(a, stream);
-  if (rows == 8) return launch_rows<T, D, 8, PAGED>(a, stream);
-  if (rows == ROWS) return launch<T, D, PAGED>(a, stream);
+  if (rows == 1) return launch_rows<T, S, D, 1, PAGED>(a, stream);
+  if (rows == 2) return launch_rows<T, S, D, 2, PAGED>(a, stream);
+  if (rows == 4) return launch_rows<T, S, D, 4, PAGED>(a, stream);
+  if (rows == 8) return launch_rows<T, S, D, 8, PAGED>(a, stream);
+  if (rows == ROWS) return launch<T, S, D, PAGED>(a, stream);
   return cudaErrorInvalidValue;
 }
 
-template <typename T, bool PAGED>
+template <typename T, typename S, bool PAGED>
 cudaError_t by_dim(const Args& a, int D, int rows, cudaStream_t stream) {
-  if (D == 64) return by_rows<T, 64, PAGED>(a, rows, stream);
-  if (D == 128) return by_rows<T, 128, PAGED>(a, rows, stream);
+  if (D == 64) return by_rows<T, S, 64, PAGED>(a, rows, stream);
+  if (D == 128) return by_rows<T, S, 128, PAGED>(a, rows, stream);
+  return cudaErrorInvalidValue;
+}
+
+// kv_code: 0 = K/V stored in T, 1 = int8, 2 = fp8 e4m3 (with scales)
+template <typename T, bool PAGED>
+cudaError_t by_storage(const Args& a, int kv_code, int D, int rows,
+                       cudaStream_t stream) {
+  if (kv_code == 0) return by_dim<T, T, PAGED>(a, D, rows, stream);
+  if (a.ks == nullptr || a.vs == nullptr) return cudaErrorInvalidValue;
+  if (kv_code == 1) return by_dim<T, int8_t, PAGED>(a, D, rows, stream);
+  if (kv_code == 2)
+    return by_dim<T, __nv_fp8_e4m3, PAGED>(a, D, rows, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -629,20 +724,27 @@ cudaError_t by_dim(const Args& a, int D, int rows, cudaStream_t stream) {
 
 // Plain C entry for ctypes. bt == nullptr selects the contiguous cache
 // [B, max_len, KV, D]; otherwise k/v are pools [num_blocks, bs, KV, D]
-// addressed through bt [B, nb] and max_len must equal nb * bs.
+// addressed through bt [B, nb] and max_len must equal nb * bs. kv_code
+// 0 keeps k/v in q's dtype (ks/vs unused); 1 (int8) and 2 (fp8 e4m3)
+// read narrow k/v with their f32 scales ks/vs [.., KV] (the cache or
+// pool shape without D).
 // o_part [B*KV, n_split, gq, D], m_part/l_part [B*KV, n_split, gq] are
 // fp32 scratch owned by the caller. Returns the cudaError_t of the
 // launches (0 = both were accepted).
 extern "C" int paddle_flash_decode(const void* q, const void* k, const void* v,
+                                   const void* ks, const void* vs,
                                    const void* pos, const void* bt,
                                    void* o_part, void* m_part, void* l_part,
-                                   void* out, int is_bf16, int B, int q_len,
+                                   void* out, int is_bf16, int kv_code,
+                                   int B, int q_len,
                                    int H, int KV, int D, int max_len, int bs,
                                    int nb, int n_split, int split_keys,
                                    int rows, float scale, void* stream) {
   Args a{q,
          k,
          v,
+         static_cast<const float*>(ks),
+         static_cast<const float*>(vs),
          static_cast<const int*>(pos),
          static_cast<const int*>(bt),
          static_cast<float*>(o_part),
@@ -663,10 +765,10 @@ extern "C" int paddle_flash_decode(const void* q, const void* k, const void* v,
   const bool paged = bt != nullptr;
   cudaError_t e;
   if (is_bf16)
-    e = paged ? by_dim<__nv_bfloat16, true>(a, D, rows, st)
-              : by_dim<__nv_bfloat16, false>(a, D, rows, st);
+    e = paged ? by_storage<__nv_bfloat16, true>(a, kv_code, D, rows, st)
+              : by_storage<__nv_bfloat16, false>(a, kv_code, D, rows, st);
   else
-    e = paged ? by_dim<float, true>(a, D, rows, st)
-              : by_dim<float, false>(a, D, rows, st);
+    e = paged ? by_storage<float, true>(a, kv_code, D, rows, st)
+              : by_storage<float, false>(a, kv_code, D, rows, st);
   return static_cast<int>(e);
 }

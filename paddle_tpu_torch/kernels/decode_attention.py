@@ -11,14 +11,24 @@ beside it:
   addressed through per-row block tables (the serving engine's decode
   step and every chunked-prefill bundle, q_len <= ``MAX_PAGED_Q_LEN``).
 
+Both take QUANTIZED caches too: int8 / float8_e4m3 K/V with their
+per-token-per-head f32 absmax scales (``k_scale``/``v_scale``, shaped
+like the cache without the head dimension). The kernel dequantizes each
+value where it loads it, ``q * s / bound`` rounded to q's dtype (the
+prologue of the TPU kernel's ``_decode_kernel_quant``), so only the
+narrow bytes cross device memory.
+
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; there is no fallback. Each
-wrapper counts its launches in ``LAUNCHES``.
+wrapper counts its launches in ``LAUNCHES``, quantized launches under
+their own ``*_quant`` keys.
 
 ``decode_dispatch`` / ``paged_decode_dispatch`` keep the JAX package's
 gates (external mask, q_len, dtype, grad mode): a declined call runs
 the plain attention math exactly where the JAX package runs XLA, and
-the reason is counted in ``DISPATCH_FALLBACKS``.
+the reason is counted in ``DISPATCH_FALLBACKS``. With ``quantized=True``
+hits count under ``<model>_quant`` / ``<model>_paged_quant`` and
+fallbacks under ``quant_<reason>`` / ``paged_quant_<reason>``.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from collections import Counter
 
 import torch
 
+from ..quantization.intx import format_of_dtype, unpack_absmax
 from ._blocks import pick_block
 from ._build import load_library
 
@@ -49,7 +60,9 @@ NEG_INF = -1e30
 # keys per shared-memory chunk inside the kernel (csrc KB)
 _KEYS_PER_CHUNK = 32
 
-LAUNCHES = {"flash_decode_attention": 0, "paged_flash_decode_attention": 0}
+LAUNCHES = {"flash_decode_attention": 0, "paged_flash_decode_attention": 0,
+            "flash_decode_attention_quant": 0,
+            "paged_flash_decode_attention_quant": 0}
 DISPATCH_HITS: Counter = Counter()
 DISPATCH_FALLBACKS: Counter = Counter()
 
@@ -78,27 +91,31 @@ def _decline_reason(q_len: int, limit: int, has_mask: bool, dtype):
 
 
 def decode_dispatch(model: str, *, q_len: int, has_mask: bool,
-                    dtype) -> bool:
+                    dtype, quantized: bool = False) -> bool:
     """True -> run ``flash_decode_attention``; False -> the plain
-    attention, with the reason counted."""
+    attention, with the reason counted (``quantized``: the cache is an
+    int8/fp8 store, counted under ``<model>_quant`` / ``quant_<reason>``)."""
     reason = _decline_reason(q_len, MAX_DECODE_Q_LEN, has_mask, dtype)
     if reason is None:
-        DISPATCH_HITS[model] += 1
+        DISPATCH_HITS[model + ("_quant" if quantized else "")] += 1
         return True
-    DISPATCH_FALLBACKS[reason] += 1
+    DISPATCH_FALLBACKS[("quant_" if quantized else "") + reason] += 1
     return False
 
 
 def paged_decode_dispatch(model: str, *, q_len: int, has_mask: bool,
-                          dtype) -> bool:
+                          dtype, quantized: bool = False) -> bool:
     """``decode_dispatch`` for the paged decode / chunk-prefill path: the
     query window covers the prefill chunk (``MAX_PAGED_Q_LEN``), and
-    outcomes count under ``<model>_paged`` / ``paged_<reason>``."""
+    outcomes count under ``<model>_paged[_quant]`` /
+    ``paged_[quant_]<reason>``."""
     reason = _decline_reason(q_len, MAX_PAGED_Q_LEN, has_mask, dtype)
     if reason is None:
-        DISPATCH_HITS[model + "_paged"] += 1
+        DISPATCH_HITS[model + "_paged" + ("_quant" if quantized else "")] \
+            += 1
         return True
-    DISPATCH_FALLBACKS["paged_" + reason] += 1
+    DISPATCH_FALLBACKS[("paged_quant_" if quantized else "paged_")
+                       + reason] += 1
     return False
 
 
@@ -146,11 +163,38 @@ def _attend_ref(q, kc, vc, lens, scale: float):
     return o.to(q.dtype)
 
 
+def _scales(k_scale, v_scale):
+    """True for a quantized call; raises when only one scale is given."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    return k_scale is not None
+
+
+def _dequant(c, s, dtype):
+    """A quantized cache or pool widened to ``dtype`` through
+    ``unpack_absmax`` (values and [.., KV] scales of the same layout)."""
+    return unpack_absmax(c, s[..., None], format_of_dtype(c.dtype), dtype)
+
+
+def _take_blocks(pool, bt):
+    """``pool[bt]`` reshaped to [B, nb * bs, ...]; narrow pools are
+    indexed through their bytes (some builds lack fp8 indexing)."""
+    B, nb = bt.shape
+    src = pool.view(torch.uint8) if pool.element_size() == 1 \
+        and pool.is_floating_point() else pool
+    out = src[bt].reshape((B, nb * pool.shape[1]) + tuple(pool.shape[2:]))
+    return out.view(pool.dtype)
+
+
 def flash_decode_attention_ref(q, k_cache, v_cache, positions,
-                               sm_scale=None):
-    """Plain PyTorch version of ``flash_decode_attention``."""
+                               sm_scale=None, k_scale=None, v_scale=None):
+    """Plain PyTorch version of ``flash_decode_attention``; a quantized
+    cache is dequantized into q's dtype first."""
     B, q_len, _, d = q.shape
     _check_heads(q, k_cache.shape[2])
+    if _scales(k_scale, v_scale):
+        k_cache = _dequant(k_cache, k_scale, q.dtype)
+        v_cache = _dequant(v_cache, v_scale, q.dtype)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     pos = _positions(positions, B, q.device)
     lens = torch.clamp(pos + q_len, max=k_cache.shape[1])
@@ -158,16 +202,20 @@ def flash_decode_attention_ref(q, k_cache, v_cache, positions,
 
 
 def paged_flash_decode_attention_ref(q, k_pool, v_pool, block_table,
-                                     positions, sm_scale=None):
+                                     positions, sm_scale=None, k_scale=None,
+                                     v_scale=None):
     """Plain PyTorch version of ``paged_flash_decode_attention``: gather
-    the rows' blocks into a contiguous view, then attend."""
+    the rows' blocks into a contiguous view (dequantized into q's dtype
+    for a quantized pool), then attend."""
     B, q_len, _, d = q.shape
     _check_heads(q, k_pool.shape[2])
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     bt = block_table.to(device=q.device).long()
     nb, bs = bt.shape[1], k_pool.shape[1]
-    kc = k_pool[bt].reshape((B, nb * bs) + tuple(k_pool.shape[2:]))
-    vc = v_pool[bt].reshape((B, nb * bs) + tuple(v_pool.shape[2:]))
+    kc, vc = _take_blocks(k_pool, bt), _take_blocks(v_pool, bt)
+    if _scales(k_scale, v_scale):
+        kc = _dequant(kc, _take_blocks(k_scale, bt), q.dtype)
+        vc = _dequant(vc, _take_blocks(v_scale, bt), q.dtype)
     pos = _positions(positions, B, q.device)
     lens = torch.clamp(pos + q_len, max=nb * bs)
     return _attend_ref(q, kc, vc, lens, scale)
@@ -185,20 +233,44 @@ def _sm_count(device) -> int:
     return _SM_COUNT[idx]
 
 
-def _launch(name: str, q, k, v, pos, bt, max_len: int, bs: int, nb: int,
-            scale: float):
+# storage codes of the C entry: 0 = q's dtype, 1 = int8, 2 = fp8 e4m3
+_KV_CODES = {"int8": 1, "fp8": 2}
+
+
+def _check_inputs(name, q, k, v, ks, vs, scale_shape, tensors):
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: all inputs must be on {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: q must be float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if ks is None:
+        if k.dtype != q.dtype or v.dtype != q.dtype:
+            raise TypeError(f"{name}: q/k/v must share float32 or bfloat16, "
+                            f"got {q.dtype}/{k.dtype}/{v.dtype}")
+        return 0
+    fmt = format_of_dtype(k.dtype)
+    if fmt == "bf16" or v.dtype != k.dtype:
+        raise TypeError(f"{name}: quantized k/v must both be int8 or "
+                        f"float8_e4m3fn, got {k.dtype}/{v.dtype}")
+    for s in (ks, vs):
+        if s.dtype != torch.float32 or tuple(s.shape) != scale_shape:
+            raise ValueError(f"{name}: k_scale/v_scale must be float32 "
+                             f"{scale_shape}, got {s.dtype} "
+                             f"{tuple(s.shape)}")
+    return _KV_CODES[fmt]
+
+
+def _launch(name: str, q, k, v, ks, vs, pos, bt, max_len: int, bs: int,
+            nb: int, scale: float):
     """Validate, size the split, allocate partials and launch the CUDA
     kernel pair (partials + merge) on the current stream."""
     B, q_len, H, d = q.shape
     KV = k.shape[2]
     group = _check_heads(q, KV)
-    tensors = [q, k, v, pos] + ([bt] if bt is not None else [])
-    if any(t.device != q.device for t in tensors):
-        raise ValueError(f"{name}: all inputs must be on {q.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16) \
-            or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name}: q/k/v must share float32 or bfloat16, got "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    tensors = [q, k, v, pos] + ([bt] if bt is not None else []) \
+        + ([ks, vs] if ks is not None else [])
+    kv_code = _check_inputs(name, q, k, v, ks, vs, tuple(k.shape[:3]),
+                            tensors)
     if d not in (64, 128):
         raise ValueError(f"{name}: head_dim {d} not built (64 or 128)")
     if not all(t.is_contiguous() for t in tensors):
@@ -231,11 +303,13 @@ def _launch(name: str, q, k, v, pos, bt, max_len: int, bs: int, nb: int,
     out = torch.empty_like(q)
     lib = load_library("decode_attention.cu")
     rc = lib.paddle_flash_decode(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        ks.data_ptr() if ks is not None else None,
+        vs.data_ptr() if vs is not None else None, pos.data_ptr(),
         bt.data_ptr() if bt is not None else None,
         o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-        out.data_ptr(), int(q.dtype == torch.bfloat16), B, q_len, H, KV, d,
-        max_len, bs, nb, n_split, split_keys, rows, float(scale),
+        out.data_ptr(), int(q.dtype == torch.bfloat16), kv_code, B, q_len,
+        H, KV, d, max_len, bs, nb, n_split, split_keys, rows, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
@@ -243,7 +317,8 @@ def _launch(name: str, q, k, v, pos, bt, max_len: int, bs: int, nb: int,
     return out
 
 
-def flash_decode_attention(q, k_cache, v_cache, positions, sm_scale=None):
+def flash_decode_attention(q, k_cache, v_cache, positions, sm_scale=None,
+                           k_scale=None, v_scale=None):
     """Flash-decode attention over the contiguous KV caches.
 
     q: [B, q_len, heads, d]; k_cache/v_cache: [B, max_len, kv_heads, d]
@@ -251,10 +326,16 @@ def flash_decode_attention(q, k_cache, v_cache, positions, sm_scale=None):
     ``positions``: int or per-row [B] tensor. Query i of row b sits at
     position positions[b] + i and attends cache positions <= it; query
     head j reads kv head j // (heads // kv_heads). Returns
-    [B, q_len, heads, d] in q's dtype."""
+    [B, q_len, heads, d] in q's dtype.
+
+    Quantized caches: int8/fp8 k/v with ``k_scale``/``v_scale``
+    [B, max_len, kv_heads] f32 (``make_kv_caches(kv_format=...)``'s
+    ``ks``/``vs``), dequantized in the kernel; counted under
+    ``flash_decode_attention_quant``."""
+    quant = _scales(k_scale, v_scale)
     if q.device.type == "cpu":
         return flash_decode_attention_ref(q, k_cache, v_cache, positions,
-                                          sm_scale)
+                                          sm_scale, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_attention: unsupported device "
                          f"{q.device}")
@@ -262,12 +343,13 @@ def flash_decode_attention(q, k_cache, v_cache, positions, sm_scale=None):
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     pos = _positions(positions, B, q.device)
     max_len = k_cache.shape[1]
-    return _launch("flash_decode_attention", q, k_cache, v_cache, pos, None,
+    name = "flash_decode_attention" + ("_quant" if quant else "")
+    return _launch(name, q, k_cache, v_cache, k_scale, v_scale, pos, None,
                    max_len, 1, 1, scale)
 
 
 def paged_flash_decode_attention(q, k_pool, v_pool, block_table, positions,
-                                 sm_scale=None):
+                                 sm_scale=None, k_scale=None, v_scale=None):
     """Flash-decode attention over PAGED KV pools.
 
     q: [B, q_len, heads, d] (a decode step or one chunked-prefill
@@ -275,11 +357,17 @@ def paged_flash_decode_attention(q, k_pool, v_pool, block_table, positions,
     this step's tokens already scattered (``paged_kv_cache_write``);
     ``block_table``: [B, nb] int32, row b's logical block j lives in pool
     block ``block_table[b, j]``; ``positions`` as in
-    ``flash_decode_attention``, with max_len = nb * block_size."""
+    ``flash_decode_attention``, with max_len = nb * block_size.
+
+    Quantized pools: int8/fp8 k/v with ``k_scale``/``v_scale``
+    [num_blocks, block_size, kv_heads] f32 (``make_paged_kv_pools``'
+    ``ks``/``vs``), read through the same table and dequantized in the
+    kernel; counted under ``paged_flash_decode_attention_quant``."""
+    quant = _scales(k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_flash_decode_attention_ref(q, k_pool, v_pool,
                                                 block_table, positions,
-                                                sm_scale)
+                                                sm_scale, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode_attention: unsupported device "
                          f"{q.device}")
@@ -291,5 +379,6 @@ def paged_flash_decode_attention(q, k_pool, v_pool, block_table, positions,
     pos = _positions(positions, B, q.device)
     bt = block_table.to(device=q.device, dtype=torch.int32).contiguous()
     nb, bs = bt.shape[1], k_pool.shape[1]
-    return _launch("paged_flash_decode_attention", q, k_pool, v_pool, pos,
-                   bt, nb * bs, bs, nb, scale)
+    name = "paged_flash_decode_attention" + ("_quant" if quant else "")
+    return _launch(name, q, k_pool, v_pool, k_scale, v_scale, pos, bt,
+                   nb * bs, bs, nb, scale)

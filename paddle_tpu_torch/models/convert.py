@@ -6,6 +6,11 @@ model.state_dict().items()}`` uses the same key names as the port. Its
 ``*_proj.weight`` and ``lm_head.weight`` is transposed on the way in
 (the reverse of the JAX package's ``convert_hf_llama_state_dict``).
 ``export_paddle_tpu_state`` goes the other way.
+
+A model converted for weight-only serving carries ``*.qweight`` [out,
+in] (int8 or fp8 e4m3) and ``*.scale`` [out] f32 in both packages: they
+load with their layout kept, and fp8 crosses as its bytes (numpy's e4m3
+comes from ml_dtypes, a dtype of kind ``V``).
 """
 
 from __future__ import annotations
@@ -33,6 +38,17 @@ def load_paddle_tpu_state(model: torch.nn.Module, state: dict):
     with torch.no_grad():
         for name, dst in own.items():
             arr = np.asarray(state[name])
+            if dst.element_size() == 1 and dst.is_floating_point():
+                # fp8: the stored bits, unchanged
+                if arr.dtype.itemsize != 1:
+                    raise ValueError(f"{name}: expected 1-byte fp8 values, "
+                                     f"got {arr.dtype}")
+                if tuple(arr.shape) != tuple(dst.shape):
+                    raise ValueError(f"{name}: shape {tuple(arr.shape)} "
+                                     f"does not match {tuple(dst.shape)}")
+                dst.view(torch.uint8).copy_(
+                    torch.from_numpy(np.array(arr.view(np.uint8))))
+                continue
             if arr.dtype.kind not in "fiub":   # e.g. ml_dtypes bfloat16
                 arr = arr.astype(np.float32)
             if _is_linear_weight(name) and arr.ndim == 2:

@@ -9,9 +9,12 @@ Attention takes the JAX model's branches:
   k/v are written in place, then the flash-decode kernels run when
   ``decode_dispatch`` / ``paged_decode_dispatch`` accept the call, and
   the plain grouped attention over the masked cache runs where they
-  decline (where the JAX package runs XLA). With
-  ``use_flash_attention``, a contiguous-cache prefill at offset 0 runs
-  the flash-attention kernel over the prompt instead;
+  decline (where the JAX package runs XLA). A quantized cache (int8/fp8
+  values with ``ks``/``vs`` scales) is written quantized and read by the
+  kernels' dequantizing variants, or dequantized for the plain
+  attention. With ``use_flash_attention``, a contiguous-cache prefill at
+  offset 0 runs the flash-attention kernel over the prompt instead (over
+  the step's own unquantized k/v, while the cache is still written);
 - no cache: causal attention over the sequence, through the
   flash-attention kernels (K1-K3) with ``use_flash_attention`` and the
   plain attention without it. GQA k/v are expanded first (``repeat_kv``).
@@ -244,6 +247,9 @@ class LlamaAttention(nn.Module):
             return self.o_proj(out.reshape(b, s, -1))
 
         paged = "bt" in kv_cache
+        # quantized cache: int8/fp8 storage with "ks"/"vs" absmax scales;
+        # the kernels dequantize as they load, the plain path at the gather
+        quant_cache = "ks" in kv_cache
         # flash prefill: at offset 0, causal attention over the prompt
         # alone equals the masked attention over the cache; paged caches
         # never take it (a chunk must read earlier blocks via the table)
@@ -256,22 +262,25 @@ class LlamaAttention(nn.Module):
             dispatch = paged_decode_dispatch if paged else decode_dispatch
             use_kernel = dispatch("llama", q_len=s,
                                   has_mask=attn_mask is not None,
-                                  dtype=q.dtype)
+                                  dtype=q.dtype, quantized=quant_cache)
         k_full, v_full, new_cache, mask = update_static_kv_cache(
             kv_cache, k, v, position_offset,
             build_mask=(attn_mask is None and not use_kernel
                         and not flash_prefill),
             gather=not use_kernel)
         if flash_prefill:
+            # the step's own k/v, unquantized, as the JAX model keeps them
             out = _flash_prefill(q, repeat_kv(k, rep), repeat_kv(v, rep))
         elif use_kernel:
+            ks, vs = new_cache.get("ks"), new_cache.get("vs")
             if paged:
                 out = paged_flash_decode_attention(
                     q, new_cache["k"], new_cache["v"], new_cache["bt"],
-                    position_offset)
+                    position_offset, k_scale=ks, v_scale=vs)
             else:
                 out = flash_decode_attention(q, k_full, v_full,
-                                             position_offset)
+                                             position_offset, k_scale=ks,
+                                             v_scale=vs)
         else:
             if attn_mask is None:
                 attn_mask = mask

@@ -15,7 +15,12 @@ the worst-case length. On top of the pool:
 - preemption by recompute: under pool pressure the latest-admitted
   request gives its blocks back and is requeued at the front with its
   generated tokens folded into its next prefill; nothing is delivered
-  twice.
+  twice;
+- quantized KV blocks (``kv_format="int8"`` / ``"fp8"``): the pools hold
+  narrow values with per-token-per-head f32 scale pools (``ks``/``vs``)
+  on the same blocks; chunks and decode steps write quantized and read
+  through the dequantizing paged kernel, and a COW fork copies the
+  scales with the values.
 
 Each iteration runs the three programs of the JAX engine as eager
 PyTorch: a prefill chunk (``_chunk``), one decode step for the whole
@@ -40,6 +45,7 @@ import torch
 from ..device import resolve_device
 from ..generation import (_paged_flat_indices, kv_cache_bytes_per_token,
                           make_cached_runner, make_paged_kv_pools)
+from ..quantization.intx import KV_FORMATS, format_dtype
 from . import metrics as _sm
 from .block_pool import BlockPool, PoolExhaustedError, PrefixCache
 from .request import Request, RequestStatus, SamplingParams
@@ -63,8 +69,10 @@ class ServingConfig:
     - ``max_queue_depth``: admission backpressure bound.
     - ``pad_token_id``: filler of a chunk's tail (its writes go to the
       dump block).
-    - ``kv_format``: ``"bf16"`` (the model's dtype) only; quantized pools
-      come with the quantized-serving slice.
+    - ``kv_format``: KV block storage, ``"bf16"`` (the model's own
+      dtype), ``"int8"`` or ``"fp8"`` (e4m3), the narrow ones with f32
+      per-token-per-head absmax scales. Quantized blocks live in the
+      paged pool, the only KV mode of this engine.
     """
 
     max_slots: int = 4
@@ -78,10 +86,12 @@ class ServingConfig:
     kv_format: str = "bf16"
 
     def __post_init__(self):
+        if self.kv_format not in KV_FORMATS:
+            raise ValueError(
+                f"kv_format must be one of {KV_FORMATS}, got "
+                f"{self.kv_format!r}")
         if self.kv_format != "bf16":
-            raise NotImplementedError(
-                f"kv_format={self.kv_format!r}: quantized KV pools come with "
-                f"the quantized-serving slice; only 'bf16' is ported")
+            format_dtype(self.kv_format)  # actionable fp8-missing error
         if self.block_size < 1 or self.max_len % self.block_size:
             raise ValueError(
                 f"block_size ({self.block_size}) must divide max_len "
@@ -162,9 +172,12 @@ class ServingEngine:
         self.prefix_cache = PrefixCache(self.pool) if config.prefix_caching \
             else None
         self._pools = make_paged_kv_pools(mcfg, self._nblocks, bs,
-                                          self._dtype, device=self.device)
+                                          self._dtype, config.kv_format,
+                                          device=self.device)
         self._kv_bytes_per_token = kv_cache_bytes_per_token(
             mcfg, config.kv_format, self._dtype)
+        _sm.set_gauge("kv_bytes_per_token", self._kv_bytes_per_token,
+                      label=config.kv_format)
         self._bt = np.zeros((B, config.blocks_per_slot()), np.int32)
         self._slot_blocks: List[List[int]] = [[] for _ in range(B)]
         self._slot_len = [0] * B                          # host mirror of pos
@@ -212,7 +225,8 @@ class ServingEngine:
 
     def _cow(self, src: int, dst: int):
         """Copy-on-write fork: duplicate physical block ``src`` into
-        ``dst`` in every layer's K and V pool."""
+        ``dst`` in every pool of every layer (K and V, and their scales
+        when quantized)."""
         with torch.no_grad():
             for c in self._pools:
                 for t in c.values():
@@ -581,6 +595,31 @@ class ServingEngine:
         self._admit()
         return n
 
+    def kv_block_stats(self) -> dict:
+        """Pool utilization and internal fragmentation (allocated token
+        slots the slots' sequences do not fill), with the quantization
+        accounting: the storage format, bytes per cached token (values
+        and scales, all layers), the pool's token capacity and the
+        capacity multiplier against a bf16 pool of the same bytes."""
+        stats = self.pool.stats()
+        bs = self.config.block_size
+        frag = 0
+        for slot in range(self.config.max_slots):
+            if self._slot_req[slot] is None:
+                continue
+            used = self._jobs[slot].done if self._jobs[slot] is not None \
+                else self._slot_len[slot]
+            frag += len(self._slot_blocks[slot]) * bs - used
+        stats["internal_fragmentation_tokens"] = frag
+        stats["kv_format"] = self.config.kv_format
+        stats["bytes_per_token"] = self._kv_bytes_per_token
+        stats["effective_capacity_tokens"] = self.pool.usable_blocks * bs
+        bf16 = kv_cache_bytes_per_token(self.model.config, "bf16",
+                                        self._dtype)
+        stats["capacity_vs_bf16"] = round(
+            bf16 / max(1, self._kv_bytes_per_token), 3)
+        return stats
+
     def stats(self) -> dict:
         """Host-side counts: iterations, pool and prefix-cache state."""
         return {
@@ -590,7 +629,8 @@ class ServingEngine:
             "outcomes": dict(self._outcomes),
             "queue_depth": self.scheduler.depth,
             "slots_busy": self.busy_slots(),
-            "kv_blocks": self.pool.stats(),
+            "kv_format": self.config.kv_format,
+            "kv_blocks": self.kv_block_stats(),
             "kv_bytes_per_token": self._kv_bytes_per_token,
             "prefix_cache": (self.prefix_cache.stats()
                              if self.prefix_cache is not None else None),

@@ -5,8 +5,11 @@ comes to the port with the host-stack slice).
 ``COUNTERS`` holds monotonic counts, keyed by name (a label, where the
 JAX instrument has one, is appended after a colon:
 ``requests_total:completed``). ``GAUGES`` holds the latest value of a
-level (``queue_depth``, ``kv_blocks_in_use``). Queue waits are kept for
-the scheduler's deadline check (``queue_wait_p50``).
+level (``queue_depth``, ``kv_blocks_in_use``), keyed the same way
+(``kv_bytes_per_token:int8``: the device bytes one cached token costs
+across all layers, K + V values plus a quantized format's scales, set
+by each engine at construction and labelled by its KV format). Queue
+waits are kept for the scheduler's deadline check (``queue_wait_p50``).
 """
 
 from __future__ import annotations
@@ -30,9 +33,10 @@ def inc(name: str, n: int = 1, label: Optional[str] = None) -> None:
         COUNTERS[key] += n
 
 
-def set_gauge(name: str, value) -> None:
+def set_gauge(name: str, value, label: Optional[str] = None) -> None:
+    key = name if label is None else f"{name}:{label}"
     with _lock:
-        GAUGES[name] = value
+        GAUGES[key] = value
 
 
 def observe_queue_wait(seconds: float) -> None:

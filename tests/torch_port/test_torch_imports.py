@@ -46,6 +46,11 @@ def test_importing_the_port_leaves_jax_out():
             "paddle_tpu_torch.generation, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.kernels, "
             "paddle_tpu_torch.kernels.flash_attention, "
+            "paddle_tpu_torch.kernels.quant_matmul, paddle_tpu_torch.nn, "
+            "paddle_tpu_torch.nn.quant, paddle_tpu_torch.quantization, "
+            "paddle_tpu_torch.quantization.intx, "
+            "paddle_tpu_torch.quantization.observers, "
+            "paddle_tpu_torch.quantization.ptq_serving, "
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.distributed; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; "
@@ -70,6 +75,25 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(model, max_slots=1, max_len=64)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_quantized_entry_points_default_to_cuda(monkeypatch):
+    """The quantized path adds no way around the device rule: a converted
+    model still lives where it was built, and the engine and caches
+    resolve ``None`` to CUDA."""
+    from paddle_tpu_torch.generation import make_kv_caches
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.quantization import convert_for_serving
+    from paddle_tpu_torch.serving import ServingEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = convert_for_serving(
+        LlamaForCausalLM(LlamaConfig.tiny(), device="cpu"), fmt="int8")
+    assert model.lm_head.qweight.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(model, max_slots=1, max_len=64, kv_format="int8")
+    caches = make_kv_caches(model.config, 1, 8, torch.float32, "fp8")
+    assert caches[0]["k"].device.type == "cpu"
 
 
 def _run_smoke(cwd):

@@ -118,3 +118,98 @@ def test_flash_kernels_match_plain(s, d, causal, with_seg, dtype):
     for got, ref in zip((qg.grad, kg.grad, vg.grad), want):
         torch.testing.assert_close(got.float(), ref.float(), atol=atol,
                                    rtol=0)
+
+
+def _quantized(t, fmt):
+    """Per-token-per-head absmax pack of a [.., KV, d] cache or pool:
+    (narrow values, f32 scales [.., KV])."""
+    from paddle_tpu_torch.quantization.intx import absmax_along, pack_absmax
+
+    amax = absmax_along(t, -1)
+    return pack_absmax(t, amax[..., None], fmt), amax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("q_len,group", [(1, 1), (8, 4)])
+def test_contiguous_quant_kernel_matches_plain(q_len, group, dtype, fmt):
+    """K5: int8/fp8 caches with per-token scales, dequantized in the
+    kernel, against the plain version (dequantize, then attend)."""
+    require_cuda()
+    rng = np.random.RandomState(20 * q_len + group)
+    B, KV, d, max_len = 3, 2, 128, 96
+    q = _cuda(rng, (B, q_len, KV * group, d), dtype)
+    k, ks = _quantized(_cuda(rng, (B, max_len, KV, d), torch.float32), fmt)
+    v, vs = _quantized(_cuda(rng, (B, max_len, KV, d), torch.float32), fmt)
+    pos = torch.tensor([0, 41, max_len - q_len], dtype=torch.int32,
+                       device="cuda")
+    tda.reset_counters()
+    got = tda.flash_decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert tda.LAUNCHES["flash_decode_attention_quant"] == 1
+    assert tda.LAUNCHES["flash_decode_attention"] == 0
+    want = tda.flash_decode_attention_ref(q, k, v, pos, k_scale=ks,
+                                          v_scale=vs)
+    torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("q_len,group", [(1, 1), (32, 4), (200, 1)])
+def test_paged_quant_kernel_matches_plain(q_len, group, dtype, fmt):
+    """K7: quantized pools and scale pools through the block table."""
+    require_cuda()
+    rng = np.random.RandomState(200 + q_len + group)
+    B, KV, d, bs, nb, N = 3, 2, 128, 16, 16, 50
+    q = _cuda(rng, (B, q_len, KV * group, d), dtype)
+    kp, ks = _quantized(_cuda(rng, (N, bs, KV, d), torch.float32), fmt)
+    vp, vs = _quantized(_cuda(rng, (N, bs, KV, d), torch.float32), fmt)
+    bt_np = (rng.permutation(N - 1)[:B * nb] + 1).reshape(B, nb)
+    bt_np[2] = 0
+    bt = torch.tensor(bt_np, dtype=torch.int32, device="cuda")
+    pos = torch.tensor([nb * bs - q_len, 7, 0], dtype=torch.int32,
+                       device="cuda")
+    tda.reset_counters()
+    got = tda.paged_flash_decode_attention(q, kp, vp, bt, pos, k_scale=ks,
+                                           v_scale=vs)
+    torch.cuda.synchronize()
+    assert tda.LAUNCHES["paged_flash_decode_attention_quant"] == 1
+    want = tda.paged_flash_decode_attention_ref(q, kp, vp, bt, pos,
+                                                k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("M,N,K", [(1, 100, 272), (3, 64, 4096),
+                                   (8, 4096, 4096), (16, 33, 528),
+                                   (17, 130, 1040), (256, 4096, 11008)])
+def test_quant_matmul_kernel_matches_plain(M, N, K, dtype, fmt):
+    """K9 at every body (GEMV for M <= 16, tiled above) and ragged M, N
+    and K tails, against the plain version; outputs are kept near unit
+    scale so the bf16 atol of 2e-2 covers a last-place rounding flip."""
+    from paddle_tpu_torch.kernels import quant_matmul as tqm
+    from paddle_tpu_torch.quantization.intx import pack_absmax
+
+    require_cuda()
+    rng = np.random.RandomState(M + N + K)
+    x = (_cuda(rng, (M, K), torch.float32) * (0.5 / np.sqrt(K))).to(dtype)
+    wf = _cuda(rng, (N, K), torch.float32)
+    amax = wf.abs().amax(dim=1)
+    w = pack_absmax(wf, amax[:, None], fmt)
+    scale = amax / (127.0 if fmt == "int8" else 448.0)
+    tqm.reset_counters()
+    got = tqm.quant_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    assert tqm.LAUNCHES["quant_matmul"] == 1
+    want = tqm.quant_matmul_ref(x, w, scale)
+    torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype],
+                               rtol=0)
