@@ -26,7 +26,13 @@ Phases, each printing JSON lines (and failing loudly on any check):
    dequantized cache as the yardstick; K9 (the weight-only quantized
    matmul) at Llama-2-7B's linear shapes for a decode step (M 8) and a
    prefill chunk (M 256), with ``torch.matmul`` against the weight
-   dequantized beforehand as the yardstick.
+   dequantized beforehand as the yardstick. K8 (the paged kernels under
+   a draft tree's ancestor mask) over bf16 and fp32 pools and int8 /
+   fp8 pools with bf16 queries, B 8, 32 heads (group 1, and one group-4
+   case), max_len 2048, for a causal bundle of 5 (asserted bit-equal to
+   the maskless K6 / K7), the [2, 2] tree (7 nodes) and the [4, 2, 2]
+   tree (29); SDPA with the boolean mask over the gathered pool is the
+   yardstick.
 4. ``serve``: Llama-2-7B at full width and depth, bf16, seeded random
    N(0, 0.02) weights made on the card, served by the paged engine
    (8 slots, max_len 2048, 16-token blocks, 256-token prefill chunks):
@@ -43,6 +49,17 @@ Phases, each printing JSON lines (and failing loudly on any check):
    on the same weights in fp32, where the check is asserted.
    ``profile``: wall and device time of a prefill and a decode
    iteration of the bf16 engine, and the kernels that take the most.
+   ``serve_spec``: the same bf16 target with ``truncated_draft(target,
+   2)`` over the same traffic in the chain (spec_k 4), tree [2, 2] and
+   tree [4, 2, 2] lanes, and tree [2, 2] at 60% of the worst-case
+   blocks (must preempt). Checks: every request completes with its
+   token count; exact launch counts: chunks run both models through
+   K6, the chain's verify and its k + 1 draft forwards go through K6,
+   the tree's verify and depth + 1 draft forwards through K8 and
+   nothing else; no fallback. Reports tokens/s beside the plain
+   engine's, rounds, drafted and accepted tokens, the accept histogram,
+   tokens equal to the plain engine's and preemptions. A ``profile`` of
+   a [4, 2, 2] round beside the plain decode step.
 5. ``serve_quant``: the same seeded Llama-2-7B converted by
    ``convert_for_serving`` to int8 weight-only linears and served with
    int8 KV blocks over the same 12 requests. Checks: every request
@@ -53,12 +70,21 @@ Phases, each printing JSON lines (and failing loudly on any check):
    KV bytes per token and the capacity against bf16, the model's bytes,
    peak memory, token agreement with the bf16 engine and the
    teacher-forced agreement (bf16 activations, reported), and a
-   ``profile`` of its iterations. Then fp8 weights and fp8 KV on four
-   requests, with the same checks. ``quant_parity``: Llama-2-7B's width
+   ``profile`` of its iterations; then the int8 speculative lane (tree
+   [2, 2], the draft converted alike: K7, K8's quantized variant and K9,
+   launch counts exact). Then fp8 weights and fp8 KV on four requests,
+   with the same checks. ``quant_parity``: Llama-2-7B's width
    at depth 2 in fp32, int8 weights and KV, served on the card and on
    the CPU (plain versions) from the same converted weights: greedy
    tokens equal, the card's ``generate(kv_format="int8")`` equal to the
-   card's engine, first-forward logits within 1e-3.
+   card's engine, first-forward logits within 1e-3. ``spec_parity``:
+   the same width at depth 2 in fp32 with a 1-layer truncated draft,
+   three requests through the chain k4, tree [2, 2] and tree [4, 2, 2]
+   lanes on the card and on the CPU, an int8 tree [2, 2] lane and
+   offline ``generate`` chain and tree: the card's speculative tokens
+   equal its plain tokens and the CPU's, drafted/accepted counts equal
+   on both; a coupled pair (layer 1 zeroed to an identity, the draft
+   its first layer) accepts every draft.
 6. ``train``: the JAX package's bench.py primary point (134M Llama,
    hidden 768, 12 layers of 12 heads, vocab 32000, flash attention) at
    full width and depth in bf16 with fp32 rope tables, seeded N(0, 0.02)
@@ -72,9 +98,8 @@ Phases, each printing JSON lines (and failing loudly on any check):
    seq 256 in fp32, three steps on the card and three on the CPU (plain
    versions) from the same weights: losses agree to rtol 1e-4, every
    weight within lr and their mean difference within 1e-3 * lr.
-7. ``kernels``: one summary object per kernel (K1-K7 and K9); then the
-   card's
-   nvidia-smi line; the last line is
+7. ``kernels``: one summary object per kernel (K1-K9, K8 and its
+   quantized variant separately); then the card's nvidia-smi line; the last line is
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Exits non-zero, printing no result, without a GPU or outside a checkout
@@ -152,17 +177,22 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def attention_bound(lens, q_len, H, KV, d, itemsize, extra_bytes,
-                    dtype_name, kv_itemsize=None, scale_bytes=0):
+                    dtype_name, kv_itemsize=None, scale_bytes=0,
+                    bundle_pairs=None):
     """Least time for the attention of these rows: each valid K/V byte
     (``kv_itemsize`` each, plus ``scale_bytes`` per token and kv head
     for a quantized cache), q, out and the index inputs moved once, or
     4*d flops per visible (query, key) pair at the dtype's peak,
-    whichever is larger."""
+    whichever is larger. ``bundle_pairs``: the visible (query, key)
+    pairs inside the bundle of one row and head (a tree's ancestor
+    count; causal by default)."""
     B = len(lens)
     kv_isz = itemsize if kv_itemsize is None else kv_itemsize
     nbytes = sum(lens) * KV * (d * kv_isz + scale_bytes) * 2 \
         + 2 * B * q_len * H * d * itemsize + extra_bytes
-    pairs = sum(H * (q_len * L - q_len * (q_len - 1) // 2) for L in lens)
+    inner = q_len * (q_len + 1) // 2 if bundle_pairs is None \
+        else bundle_pairs
+    pairs = sum(H * (q_len * (L - q_len) + inner) for L in lens)
     t_bytes = nbytes / PEAKS["bw"] * 1e3
     t_ops = 4 * d * pairs / PEAKS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -667,7 +697,7 @@ def traffic(rng, vocab):
     return [(prompt(n, s), m) for n, s, m in spec]
 
 
-def serve_engine(model, requests, **overrides):
+def serve_engine(model, requests, draft=None, **overrides):
     import torch
 
     from paddle_tpu_torch.kernels import decode_attention as da
@@ -675,7 +705,7 @@ def serve_engine(model, requests, **overrides):
 
     cfg = ServingConfig(max_slots=8, max_len=2048, block_size=16,
                         prefill_chunk=256, **overrides)
-    eng = ServingEngine(model, cfg, device=DEV)
+    eng = ServingEngine(model, cfg, device=DEV, draft_model=draft)
     torch.cuda.synchronize()
     da.reset_counters()
     t0 = time.perf_counter()
@@ -756,8 +786,8 @@ def serve_phase(model, cfg, requests, kind, strict):
         out[label] = outputs
         emit(row)
         if label == "default":
-            main_launches = launches
-    return main_launches, out["default"]
+            main_launches, tps = launches, row["tokens_per_s"]
+    return main_launches, out["default"], tps
 
 
 def profile_phase(model, requests, kind, kv_format="bf16"):
@@ -792,6 +822,7 @@ def profile_phase(model, requests, kind, kv_format="bf16"):
           "decode_iteration": decode, "card": kind})
     del eng
     torch.cuda.empty_cache()
+    return decode
 
 
 def generate_phase(model, cfg, requests, kind, strict):
@@ -827,6 +858,316 @@ def generate_phase(model, cfg, requests, kind, strict):
                                    f"{dname} generate", strict))
     emit(row)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# speculative serving: chain and tree lanes, K8 (ancestor-masked paged decode)
+# ---------------------------------------------------------------------------
+
+DRAFT_LAYERS = 2    # truncated_draft(target, 2): the serve_spec draft
+SPEC_LANES = (("chain k4", dict(spec_k=4)),
+              ("tree [2,2]", dict(spec_tree=(2, 2))),
+              ("tree [4,2,2]", dict(spec_tree=(4, 2, 2))),
+              ("tree [2,2] oversubscribed", dict(spec_tree=(2, 2),
+                                                 num_blocks=int(0.6 * 1025))))
+
+
+def expected_spec_launches(L, Ld, overrides, st, quant):
+    """The exact launch counts of a speculative serve: every prefill
+    chunk runs both models through the paged kernel; the chain lane's
+    verify (q_len k + 1) and its k + 1 draft forwards go through K6 (K7);
+    the tree lane's verify and its depth + 1 draft forwards through K8
+    and nothing else. K9 (quantized weights): 7 linears a layer and the
+    lm_head, per forward of each model."""
+    sp = st["spec"]
+    chunks, rounds, drafts = st["prefill_chunks"], sp["rounds"], \
+        sp["draft_rounds"]
+    sfx = "_quant" if quant else ""
+    if "spec_tree" in overrides:
+        per_draft = len(overrides["spec_tree"]) + 1
+        out = {"paged_flash_decode_attention" + sfx: (L + Ld) * chunks,
+               "paged_flash_decode_attention_tree" + sfx:
+                   L * rounds + Ld * per_draft * drafts}
+    else:
+        per_draft = overrides["spec_k"] + 1
+        out = {"paged_flash_decode_attention" + sfx:
+                   L * (rounds + chunks) + Ld * (chunks + per_draft * drafts)}
+    if quant:
+        out["quant_matmul"] = (7 * L + 1) * (chunks + rounds) \
+            + (7 * Ld + 1) * (chunks + per_draft * drafts)
+    return out
+
+
+def spec_lane(model, draft, requests, label, overrides, plain, kind,
+              quant=False):
+    """One speculative lane over the traffic: every request completes with
+    its token count, the launch counts are exact (``expected_spec_launches``)
+    with no fallback; reports tokens/s beside the plain engine's of the
+    same run, the spec accounting and the tokens equal to the plain
+    engine's. Returns the launch counts."""
+    import torch
+
+    from paddle_tpu_torch.kernels import quant_matmul as qm
+
+    qm.reset_counters()
+    eng, reqs, secs, launches, fallbacks = serve_engine(
+        model, requests, draft=draft, **overrides)
+    qmm = dict(qm.LAUNCHES)
+    st = eng.stats()
+    sp = st["spec"]
+    tag = f"serve_spec {label}"
+    for r, (p, m) in zip(reqs, requests):
+        check(r.status == "completed" and len(r.output_tokens) == m,
+              f"{tag}: request {r} did not complete with {m} tokens")
+    L = model.config.num_hidden_layers
+    want = {k: v for k, v in expected_spec_launches(
+        L, draft.config.num_hidden_layers, overrides, st, quant).items()
+        if v}
+    got = {k: v for k, v in dict(launches, **qmm).items() if v}
+    check(got == want, f"{tag}: launches {got}, expected exactly {want}")
+    check(not fallbacks and not qm.DISPATCH_FALLBACKS,
+          f"{tag}: fallbacks {fallbacks} {dict(qm.DISPATCH_FALLBACKS)}")
+    check(sp["verify_kernel"], f"{tag}: verify declined the kernel")
+    if "num_blocks" in overrides:
+        check(st["preemptions"] >= 1, f"{tag}: engine never preempted")
+    outputs = [list(r.output_tokens) for r in reqs]
+    gen = sum(len(t) for t in outputs)
+    row = {"phase": "serve_spec", "lane": label, "model": "llama2_7b",
+           "draft": f"truncated_draft(target, {draft.config.num_hidden_layers})",
+           "dtype": "bfloat16", "weights": "int8" if quant else "bfloat16",
+           "kv_format": "int8" if quant else "bf16",
+           "spec": {k: v for k, v in overrides.items() if k != "num_blocks"},
+           "requests": len(reqs), "num_blocks": eng._nblocks,
+           "rounds": sp["rounds"], "draft_rounds": sp["draft_rounds"],
+           "prefill_chunks": st["prefill_chunks"],
+           "drafted_tokens": sp["drafted_tokens"],
+           "accepted_tokens": sp["accepted_tokens"],
+           "accept_rate": sp["accept_rate"],
+           "accept_hist": sp["accept_len"]["hist"],
+           "mean_accepted": sp["accept_len"]["mean"],
+           "preemptions": st["preemptions"],
+           "cow_forks": st["kv_blocks"]["cow_forks"],
+           "generated_tokens": gen, "seconds": secs,
+           "tokens_per_s": gen / secs,
+           "plain_bf16_tokens_per_s": plain["bf16_tokens_per_s"],
+           "kernel_launches": got, "kernel_launches_expected": want,
+           "card": kind}
+    for name, ref in plain["outputs"].items():
+        row[f"tokens_equal_to_plain_{name}_engine"] = sum(
+            x == y for a, b in zip(outputs, ref) for x, y in zip(a, b))
+        row[f"requests_equal_to_plain_{name}_engine"] = sum(
+            a == b for a, b in zip(outputs, ref))
+    emit(row)
+    del eng
+    torch.cuda.empty_cache()
+    return got
+
+
+def serve_spec_phase(model, requests, plain, kind):
+    """The bf16 target with its 2-layer truncated draft over the traffic
+    in every lane of ``SPEC_LANES``. Returns the launch counts by lane."""
+    from paddle_tpu_torch.generation import truncated_draft
+
+    draft = truncated_draft(model, DRAFT_LAYERS)
+    out = {label: spec_lane(model, draft, requests, label, ov, plain, kind)
+           for label, ov in SPEC_LANES}
+    del draft
+    return out
+
+
+def spec_profile_phase(model, requests, kind, plain_decode):
+    """Where a speculative round's time goes: the [4, 2, 2] lane on the
+    first eight requests, past their prefills, ten rounds (wall without
+    the profiler, device from a torch.profiler trace), beside the plain
+    engine's decode step of the same run."""
+    import torch
+
+    from paddle_tpu_torch.generation import truncated_draft
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    draft = truncated_draft(model, DRAFT_LAYERS)
+    eng = ServingEngine(model, ServingConfig(
+        max_slots=8, max_len=2048, block_size=16, prefill_chunk=256,
+        spec_tree=(4, 2, 2)), device=DEV, draft_model=draft)
+    for p, m in requests[:8]:
+        eng.submit(p, max_new_tokens=m)
+    while any(j is not None for j in eng._jobs):
+        eng.step()
+    each = []
+    for _ in range(5):     # warm-up rounds, each timed on its own
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        each.append((time.perf_counter() - t0) * 1e3)
+    rounds = device_window(eng.step, 10)
+    emit({"phase": "profile", "model": "llama2_7b", "dtype": "bfloat16",
+          "what": "speculative round, tree [4,2,2] (draft: depth + 1 "
+                  "forwards of the 2-layer draft; verify: one 29-wide "
+                  "target forward through K8; the path move)",
+          "slots": 8, "spec_round": rounds, "warmup_round_wall_ms": each,
+          "plain_decode_iteration": plain_decode, "card": kind})
+    del eng, draft
+    torch.cuda.empty_cache()
+
+
+def _full_accept(n_new, depth):
+    """Drafts a request accepts over its rounds when every proposal
+    matches: each round drafts min(depth, remaining - 1) and emits one
+    more (the root's own token)."""
+    r, acc = n_new - 1, 0
+    while r > 0:
+        dc = min(depth, r - 1)
+        acc += dc
+        r -= dc + 1
+    return acc
+
+
+def spec_parity_phase(kind):
+    """Llama-2-7B's width at depth 2 in fp32 with a 1-layer truncated
+    draft, three requests: the chain (k 4), [2, 2] and [4, 2, 2] lanes on
+    the card and on the CPU (plain versions), an int8 [2, 2] lane, and
+    offline ``generate`` chain and tree. Asserts: the card's speculative
+    tokens equal its plain engine's (and plain ``generate``'s); card and
+    CPU tokens equal; per-request drafted and accepted counts equal on
+    card and CPU; a coupled pair (the target's layer 1 zeroed to an
+    identity, the draft its first layer) accepts every draft."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.generation import generate, truncated_draft
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.quantization import convert_for_serving
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
+    cpu = seeded_llama(cfg, SEED + 5, "cpu", torch.float32).eval()
+    gpu = LlamaForCausalLM(cfg, device=DEV, dtype=torch.float32).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    models = {"cuda": (gpu, truncated_draft(gpu, 1)),
+              "cpu": (cpu, truncated_draft(cpu, 1))}
+    rng = np.random.RandomState(SEED + 5)
+    prompts = [rng.randint(1, cfg.vocab_size, n).tolist()
+               for n in (40, 200, 90)]
+    new = [6, 6, 6]
+
+    def serve(model, draft, dev, n_req=3, **ov):
+        eng = ServingEngine(model, ServingConfig(
+            max_slots=2, max_len=512, block_size=16, prefill_chunk=128,
+            **ov), device=dev, draft_model=draft)
+        reqs = [eng.submit(p, max_new_tokens=n)
+                for p, n in zip(prompts[:n_req], new)]
+        eng.run_until_idle()
+        check(all(r.status == "completed" for r in reqs),
+              f"spec_parity: {dev} engine left requests unfinished")
+        return ([list(r.output_tokens) for r in reqs],
+                [(r.spec_drafted, r.spec_accepted) for r in reqs])
+
+    plain = serve(gpu, None, DEV)[0]
+    result = {"plain_tokens_cuda": plain}
+    da.reset_counters()
+    for label, ov in (("chain k4", dict(spec_k=4)),
+                      ("tree [2,2]", dict(spec_tree=(2, 2))),
+                      ("tree [4,2,2]", dict(spec_tree=(4, 2, 2)))):
+        runs = {dev: serve(m, d, DEV if dev == "cuda" else "cpu", **ov)
+                for dev, (m, d) in models.items()}
+        result[label] = {"tokens_equal_plain": runs["cuda"][0] == plain,
+                         "tokens_equal_card_cpu":
+                             runs["cuda"][0] == runs["cpu"][0],
+                         "drafted_accepted_cuda": runs["cuda"][1],
+                         "drafted_accepted_cpu": runs["cpu"][1]}
+        check(runs["cuda"][0] == plain,
+              f"spec_parity {label}: card spec tokens {runs['cuda'][0]} != "
+              f"card plain tokens {plain}")
+        check(runs["cuda"] == runs["cpu"],
+              f"spec_parity {label}: card {runs['cuda']} != CPU "
+              f"{runs['cpu']}")
+    result["kernel_launches_cuda"] = {k: v for k, v in da.LAUNCHES.items()
+                                      if v}
+    check(da.LAUNCHES["paged_flash_decode_attention_tree"] > 0,
+          "spec_parity: the fp32 tree lanes did not run K8")
+
+    # int8 weights and KV, tree [2, 2]: both devices from the CPU's
+    # converted weights (two requests, four new tokens)
+    q = {}
+    for name, dev in (("cpu", "cpu"), ("cuda", DEV)):
+        t = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32).eval()
+        t.load_state_dict(cpu.state_dict())
+        d = truncated_draft(t, 1)
+        convert_for_serving(t, fmt="int8")
+        convert_for_serving(d, fmt="int8")
+        if name == "cuda":
+            t.load_state_dict(q["cpu"][0].state_dict())
+            d.load_state_dict(q["cpu"][1].state_dict())
+        q[name] = (t, d, dev)
+    n_int8 = 2
+    saved = new[:]
+    new[:] = [4, 4, 4]
+    iq = {name: serve(t, d, dev, n_req=n_int8, spec_tree=(2, 2),
+                      kv_format="int8")
+          for name, (t, d, dev) in q.items()}
+    iplain = serve(q["cuda"][0], None, DEV, n_req=n_int8,
+                   kv_format="int8")[0]
+    new[:] = saved
+    result["int8 tree [2,2]"] = {
+        "tokens_equal_plain": iq["cuda"][0] == iplain,
+        "tokens_equal_card_cpu": iq["cuda"][0] == iq["cpu"][0],
+        "drafted_accepted_cuda": iq["cuda"][1]}
+    check(iq["cuda"][0] == iplain,
+          f"spec_parity int8: card spec {iq['cuda'][0]} != plain {iplain}")
+    check(iq["cuda"] == iq["cpu"],
+          f"spec_parity int8: card {iq['cuda']} != CPU {iq['cpu']}")
+    del q, iq
+
+    # offline generate: two 40-token prompts, chain and tree
+    ids = [prompts[0][:40], prompts[2][:40]]
+    gen, gen_launches = {}, {}
+    for dev, (m, d) in models.items():
+        for mode, kw in (("plain", {}),
+                         ("chain", dict(draft_model=d, spec_k=4)),
+                         ("tree", dict(draft_model=d, spec_tree=(2, 2)))):
+            da.reset_counters()
+            gen[dev, mode] = generate(m, ids, max_new_tokens=6,
+                                      **kw).tolist()
+            gen_launches[dev, mode] = {k: v for k, v in da.LAUNCHES.items()
+                                       if v}
+    # the chain's draft steps and verify bundles (q_len 5) run K4 on the
+    # contiguous caches; the tree's bundles take the plain attention
+    check(gen_launches["cuda", "chain"].get("flash_decode_attention", 0) > 0,
+          f"spec_parity: generate chain ran no K4: {gen_launches}")
+    for mode in ("chain", "tree"):
+        result[f"generate {mode}"] = {
+            "equal_plain": gen["cuda", mode] == gen["cuda", "plain"],
+            "equal_card_cpu": gen["cuda", mode] == gen["cpu", mode],
+            "kernel_launches_cuda": gen_launches["cuda", mode]}
+        check(gen["cuda", mode] == gen["cuda", "plain"]
+              and gen["cuda", mode] == gen["cpu", mode],
+              f"spec_parity generate {mode}: {gen}")
+
+    # coupled pair on the card: layer 1 an exact identity, the draft the
+    # target's first layer; greedy accepts every proposal
+    with torch.no_grad():
+        gpu.llama.layers[1].self_attn.o_proj.weight.zero_()
+        gpu.llama.layers[1].mlp.down_proj.weight.zero_()
+    cdraft = truncated_draft(gpu, 1)
+    for label, ov, depth in (("chain k4", dict(spec_k=4), 4),
+                             ("tree [2,2]", dict(spec_tree=(2, 2)), 2)):
+        toks, counts = serve(gpu, cdraft, DEV, **ov)
+        want = [_full_accept(n, depth) for n in new]
+        result[f"coupled {label}"] = {"drafted_accepted": counts,
+                                      "accepted_if_every_draft_matches": want}
+        if "spec_k" in ov:
+            ok = all(dr == ac for dr, ac in counts)
+        else:
+            ok = [ac for _, ac in counts] == want
+        check(ok, f"spec_parity coupled {label}: drafts rejected: "
+                  f"{counts} (full accept: {want})")
+    emit({"phase": "spec_parity", "dtype": "float32", "layers": 2,
+          "draft_layers": 1, "requests": len(prompts), "new_tokens": new,
+          **result, "card": kind})
+    del models, gpu, cpu, cdraft
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -958,6 +1299,128 @@ def quant_attention_phase(rng):
     return rows
 
 
+# K8: (pool storage, query dtype) and the bundles: a causal chain of 5
+# (held bit for bit against K6/K7 without a mask), the [2, 2] tree (7
+# nodes, the small-bundle body) and the [4, 2, 2] tree (29, the tiled one)
+TREE_POOLS = (("bf16", "bfloat16"), ("f32", "float32"), ("int8", "bfloat16"),
+              ("fp8", "bfloat16"))
+TREE_BUNDLES = ((None, 5), ((2, 2), 7), ((4, 2, 2), 29))
+
+
+def tree_kernel_phase(rng):
+    """K8 (the paged kernels under a draft tree's ancestor mask) against
+    its plain version at Llama-2-7B's serving shapes (B 8, 32 heads, d
+    128, group 1 and one group-4 case, max_len 2048, random positions),
+    over bf16 and fp32 pools and int8 / fp8 pools with bf16 queries. A
+    causal mask must give the maskless kernel's (K6 / K7) output bit for
+    bit. Library yardstick: SDPA with the boolean mask over the pool
+    gathered (and dequantized) beforehand, as the K6/K7 rows time it;
+    the gather's own cost is reported beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.generation import spec_tree_plan
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.quantization.intx import unpack_absmax
+
+    dev = torch.device(DEV)
+    rows = []
+    B, H, d, max_len, bs = 8, 32, 128, 2048, 16
+    nb = max_len // bs
+    cases = [(pool, dn, tree, w, 1) for pool, dn in TREE_POOLS
+             for tree, w in TREE_BUNDLES] + [("bf16", "bfloat16", (4, 2, 2),
+                                              29, 4)]
+    for pool, dname, tree, w, group in cases:
+        dtype = getattr(torch, dname)
+        isz = torch.empty((), dtype=dtype).element_size()
+        KV = H // group
+        anc = torch.ones(w, w, dtype=torch.bool).tril() if tree is None \
+            else torch.from_numpy(spec_tree_plan(tree)["anc"])
+        mask = anc[None].expand(B, w, w).contiguous().to(dev)
+        pos = rng.randint(0, max_len - w + 1, B)
+        pos[0], pos[1] = max_len - w, 0
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+        q = torch.randn(B, w, H, d, device=dev).to(dtype)
+        N = B * nb + 1
+        if pool in ("int8", "fp8"):
+            kp, ksc = quantize_cache(torch.randn(N, bs, KV, d, device=dev),
+                                     pool)
+            vp, vsc = quantize_cache(torch.randn(N, bs, KV, d, device=dev),
+                                     pool)
+            scales = dict(k_scale=ksc, v_scale=vsc)
+        else:
+            kp = torch.randn(N, bs, KV, d, device=dev).to(dtype)
+            vp = torch.randn(N, bs, KV, d, device=dev).to(dtype)
+            scales = {}
+        bt = torch.tensor((rng.permutation(N - 1)[:B * nb] + 1)
+                          .reshape(B, nb).astype("int32"), device=dev)
+        run = lambda: da.paged_flash_decode_attention(  # noqa
+            q, kp, vp, bt, pos_t, ancestor_mask=mask, **scales)
+        plain = lambda: da.paged_flash_decode_attention_ref(  # noqa
+            q, kp, vp, bt, pos_t, ancestor_mask=mask, **scales)
+        got = run()
+        want = plain()
+        nomask = da.paged_flash_decode_attention(q, kp, vp, bt, pos_t,
+                                                 **scales)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = err <= ATOL[dname]
+        bitwise = bool(torch.equal(got, nomask)) if tree is None else None
+
+        def gather():
+            kc, vc = da._take_blocks(kp, bt), da._take_blocks(vp, bt)
+            if scales:
+                kc = unpack_absmax(kc, da._take_blocks(ksc, bt)[..., None],
+                                   pool, dtype)
+                vc = unpack_absmax(vc, da._take_blocks(vsc, bt)[..., None],
+                                   pool, dtype)
+            return kc.transpose(1, 2), vc.transpose(1, 2)
+
+        ks_, vs_ = gather()
+        lens = [min(int(p) + w, max_len) for p in pos]
+        # the ancestor mask over the gathered cache
+        am = da.ancestor_visibility(torch.tensor(lens, device=dev) - w,
+                                    mask, max_len)[:, None]
+        qs = q.transpose(1, 2)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa
+            qs, ks_, vs_, attn_mask=am, enable_gqa=group > 1)
+        lib_gather = lambda: F.scaled_dot_product_attention(  # noqa
+            qs, *gather(), attn_mask=am, enable_gqa=group > 1)
+        quant = bool(scales)
+        bound, bound_by = attention_bound(
+            lens, w, H, KV, d, isz, bt.numel() * 4 + B * 4 + mask.numel(),
+            dname, kv_itemsize=1 if quant else None,
+            scale_bytes=4 if quant else 0,
+            bundle_pairs=int(anc.sum()))
+        row = {"phase": "kernel",
+               "name": "paged_flash_decode_attention_tree"
+                       + ("_quant" if quant else ""),
+               "kv_format": pool if quant else "bf16", "pool": pool,
+               "dtype": dname, "tree": list(tree) if tree else "causal",
+               "B": B, "q_len": w, "heads": H, "kv_heads": KV,
+               "group": group, "head_dim": d, "max_len": max_len,
+               "block_size": bs, "pos": [int(p) for p in pos],
+               "max_abs_err": err, "atol": ATOL[dname], "ok": ok,
+               "causal_mask_bitwise_equal_to_no_mask": bitwise,
+               "ms": cuda_ms(run, 50), "plain_ms": cuda_ms(plain, 5),
+               "library_ms": cuda_ms(lib, 20),
+               "library": "F.scaled_dot_product_attention with the boolean "
+                          "mask over the pool gathered"
+                          + (" and dequantized" if quant else "")
+                          + " beforehand",
+               "library_with_gather_ms": cuda_ms(lib_gather, 10),
+               "bound_ms": bound, "bound_by": bound_by}
+        emit(row)
+        rows.append(row)
+        check(ok, f"K8 disagrees with its plain version: {json.dumps(row)}")
+        check(bitwise is not False,
+              f"K8 with a causal mask differs from the maskless kernel: "
+              f"{json.dumps(row)}")
+        del kp, vp, ks_, vs_
+    torch.cuda.empty_cache()
+    return rows
+
+
 def qmm_bound(M, N, K, isz, dname):
     """Least time for one quantized matmul: the narrow weight, its
     scales, x and the output moved once, or 2*M*N*K operations at the
@@ -1035,7 +1498,7 @@ def model_bytes(model):
                for t in list(model.parameters()) + list(model.buffers()))
 
 
-def serve_quant_phase(cfg, requests, bf16_outputs, kind):
+def serve_quant_phase(cfg, requests, bf16_outputs, bf16_tps, kind):
     """Llama-2-7B (the bf16 serve's seeded weights) converted by
     ``convert_for_serving`` to int8, served with int8 KV blocks over the
     same traffic: every request completes, K7 launches once per layer per
@@ -1043,10 +1506,14 @@ def serve_quant_phase(cfg, requests, bf16_outputs, kind):
     ``generate(kv_format="int8")`` launches K5 once per layer per decode
     step. Reports tokens/s, KV bytes per token, model bytes, peak memory,
     agreement with the bf16 engine and teacher-forced agreement. Then
-    the same in fp8 (weights and KV) on four requests. Returns the
-    launch counts of the int8 serve and generate runs."""
+    the int8 speculative lane: tree [2, 2] with the 2-layer truncated
+    draft (converted alike) over the same traffic (K7, K8's quantized
+    variant and K9). Then the same in fp8 (weights and KV) on four
+    requests. Returns the launch counts of the int8 serve, generate and
+    spec runs."""
     import torch
 
+    from paddle_tpu_torch.generation import truncated_draft
     from paddle_tpu_torch.kernels import quant_matmul as qm
     from paddle_tpu_torch.quantization import convert_for_serving
 
@@ -1057,6 +1524,8 @@ def serve_quant_phase(cfg, requests, bf16_outputs, kind):
         reqs_in = requests[:n_req]
         model = seeded_llama(cfg, SEED, DEV, torch.bfloat16).eval()
         bf16_bytes = model_bytes(model)
+        draft = truncated_draft(model, DRAFT_LAYERS) if fmt == "int8" \
+            else None
         t0 = time.perf_counter()
         convert_for_serving(model, fmt=fmt)
         torch.cuda.synchronize()
@@ -1121,6 +1590,14 @@ def serve_quant_phase(cfg, requests, bf16_outputs, kind):
         emit(row)
         if fmt == "int8":
             profile_phase(model, requests, kind, kv_format=fmt)
+            convert_for_serving(draft, fmt=fmt)
+            result["spec"] = spec_lane(
+                model, draft, requests, "int8 tree [2,2]",
+                dict(spec_tree=(2, 2), kv_format=fmt),
+                {"bf16_tokens_per_s": bf16_tps,
+                 "outputs": {"bf16": bf16_outputs, "int8": outputs}},
+                kind, quant=True)
+            del draft
         del model
         torch.cuda.empty_cache()
     return result
@@ -1269,10 +1746,13 @@ def quant_parity_phase(kind):
 
 
 def summary(rows, serve_launches, gen_launches, flash_rows,
-            train_launches, quant_rows, quant_launches):
+            train_launches, quant_rows, quant_launches, tree_rows,
+            spec_launches):
     """One object per kernel, with the numbers of its main-path shape:
     for K1-K3 the training shape, for K4-K7 the decode step (bf16, group
-    1 as in Llama-2-7B; int8 for K5/K7), for K9 q_proj's weight in int8
+    1 as in Llama-2-7B; int8 for K5/K7), for K8 the [2, 2] tree's verify
+    bundle (q_len 7, bf16; int8 pools for its quantized variant; launches
+    from the tree [2,2] lanes), for K9 q_proj's weight in int8
     at a decode step of 8 slots."""
     out = []
     for name, (tag, replaces) in FLASH_META.items():
@@ -1312,6 +1792,19 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
             "tpu_counterpart": "K7", "launches": quant_launches["serve"],
             "main": dict(dtype="bfloat16", kv_format="int8", q_len=1,
                          group=1)},
+        "paged_flash_decode_attention_tree": {
+            "replaces": "paddle_tpu/pallas_kernels/decode_attention.py:685 "
+                        "(_paged_flash_decode with ancestor_mask, "
+                        "_cell_partial mask branch :299-316)",
+            "tpu_counterpart": "K8", "launches": spec_launches["tree [2,2]"],
+            "main": dict(dtype="bfloat16", pool="bf16", q_len=7, group=1)},
+        "paged_flash_decode_attention_tree_quant": {
+            "replaces": "paddle_tpu/pallas_kernels/decode_attention.py:685 "
+                        "(_paged_flash_decode quant with ancestor_mask, "
+                        "_decode_kernel_quant :371 -> _cell_partial mask "
+                        "branch :299-316)",
+            "tpu_counterpart": "K8", "launches": quant_launches["spec"],
+            "main": dict(dtype="bfloat16", pool="int8", q_len=7, group=1)},
         "quant_matmul": {
             "replaces": "paddle_tpu/pallas_kernels/quant_matmul.py:193 "
                         "(quant_matmul, _qmm_kernel :126)",
@@ -1320,7 +1813,7 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
             "main": dict(dtype="bfloat16", weight_format="int8", M=8,
                          N=4096, K=4096)},
     }
-    rows = rows + quant_rows
+    rows = rows + quant_rows + tree_rows
     for name, m in meta.items():
         mine = [r for r in rows if r["name"] == name]
         main = next(r for r in mine
@@ -1385,6 +1878,7 @@ def main(argv=None) -> int:
     rows = kernel_phase(rng)
     quant_rows = quant_attention_phase(np.random.RandomState(SEED + 4)) \
         + quant_matmul_phase()
+    tree_rows = tree_kernel_phase(np.random.RandomState(SEED + 6))
     flash_rows = flash_kernel_phase(rng)
 
     cfg = LlamaConfig.llama2_7b(dtype="bfloat16")
@@ -1399,10 +1893,16 @@ def main(argv=None) -> int:
     # rounding across 32 random layers moves logits by more than the 0.1
     # gap, so the same weights in fp32 carry the asserted check
     requests = traffic(rng, cfg.vocab_size)
-    serve_launches, bf16_outputs = serve_phase(model, cfg, requests, kind,
-                                               strict=False)
+    serve_launches, bf16_outputs, bf16_tps = serve_phase(
+        model, cfg, requests, kind, strict=False)
     gen_launches = generate_phase(model, cfg, requests, kind, strict=False)
-    profile_phase(model, requests, kind)
+    plain_decode = profile_phase(model, requests, kind)
+    # speculative serving: the same target with its truncated draft in
+    # the chain and tree lanes, then a profiled [4, 2, 2] round
+    spec_launches = serve_spec_phase(
+        model, requests, {"bf16_tokens_per_s": bf16_tps,
+                          "outputs": {"bf16": bf16_outputs}}, kind)
+    spec_profile_phase(model, requests, kind, plain_decode)
     model.float()
     torch.cuda.empty_cache()
     serve_phase(model, cfg, requests, kind, strict=True)
@@ -1412,14 +1912,17 @@ def main(argv=None) -> int:
 
     # quantized serving: the same seeded weights converted to int8 (then
     # fp8) weight-only linears over int8 (fp8) KV blocks
-    quant_launches = serve_quant_phase(cfg, requests, bf16_outputs, kind)
+    quant_launches = serve_quant_phase(cfg, requests, bf16_outputs,
+                                       bf16_tps, kind)
     quant_parity_phase(kind)
+    spec_parity_phase(kind)
 
     train_launches = train_phase(kind)
     train_parity_phase(kind)
 
     emit({"kernels": summary(rows, serve_launches, gen_launches, flash_rows,
-                             train_launches, quant_rows, quant_launches)})
+                             train_launches, quant_rows, quant_launches,
+                             tree_rows, spec_launches)})
     emit(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -30,10 +30,10 @@ BUILD_DIR = os.path.join(_HERE, "build")
 # source file -> the C entry points it exports and their ctypes argtypes
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
-    # q k v ks vs pos bt o/m/l partials out, then (bf16, kv storage, B,
-    # q_len, H, KV, D, max_len, bs, nb, n_split, split_keys, rows)
+    # q k v ks vs pos bt mask o/m/l partials out, then (bf16, kv storage,
+    # B, q_len, H, KV, D, max_len, bs, nb, n_split, split_keys, rows)
     "decode_attention.cu": {
-        "paddle_flash_decode": [_P] * 11 + [_I] * 13 + [_F, _P],
+        "paddle_flash_decode": [_P] * 12 + [_I] * 13 + [_F, _P],
     },
     # x w scale out, then (bf16, fp8, M, N, K)
     "quant_matmul.cu": {
@@ -80,9 +80,11 @@ def _start(source: str):
         return out, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
+    # -split-compile=0: nvcc runs its optimizer over the source's many
+    # template instantiations on every core
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, os.path.join(_CSRC, source)]
+           "-O3", "-split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", "-o", tmp, os.path.join(_CSRC, source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     return out, (proc, tmp)

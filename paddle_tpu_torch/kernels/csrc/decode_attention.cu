@@ -41,6 +41,23 @@
 //     merges them with the log-sum-exp of decode_attention.py:505-509.
 // The arithmetic is plain fp32 FMA; wgmma / TMA are later work.
 //
+// Tree-speculative bundles (K8, the mask branch of _cell_partial,
+// decode_attention.py:299-316): with an ancestor mask [B, q_len, q_len]
+// (bytes, nonzero = visible), bundle node j sits at cache position
+// (len - q_len) + j and key kpos is visible to query token i iff
+// kpos < len - q_len (every committed position is an ancestor of every
+// node) or mask[b, i, kpos - (len - q_len)] is set; keys past len stay
+// masked. Each block holds the mask rows of its query tokens as bits in
+// shared memory (at most 64 tokens x 256 bits in flash_decode_partial,
+// 8 x 8 in flash_decode_rows) and both storage paths go through the one
+// visibility test, so the mask covers K6 and K7 alike. The masked bodies
+// are separate instantiations (MASKED) of the paged kernels: the causal
+// launch carries no extra operand. A masked block scans its split up to
+// len (a general mask may reveal any bundle key); keys it adds past the
+// causal edge are masked, contribute p = 0 and leave m, l and the
+// accumulator bit for bit unchanged, so a causal mask reproduces the
+// unmasked output exactly.
+//
 // Quantized caches (K5, K7): K/V are stored as int8 or fp8 e4m3 (the
 // storage type S, beside the compute type T of q) with one f32 absmax
 // scale per (token, kv head), indexed like a K/V row without the D
@@ -206,6 +223,43 @@ __device__ __forceinline__ long long kv_row(int b, int kpos, int kvh, int KV,
   }
 }
 
+// words of mask bits per query token: MAX_PAGED_Q_LEN (256) / 32
+constexpr int kMaskWords = 8;
+
+// Is key kpos visible to the query token at absolute position
+// qbase + i? Causal: kpos <= qbase + i. MASKED: every key before the
+// bundle (kpos < qbase), and bundle node kpos - qbase where the token's
+// mask bits (mrow, one bit per bundle node) say so.
+template <bool MASKED>
+__device__ __forceinline__ bool visible(int kpos, int qbase, int i,
+                                        const uint32_t* mrow) {
+  if constexpr (MASKED) {
+    const int j = kpos - qbase;
+    return j < 0 || ((mrow[j >> 5] >> (j & 31)) & 1u);
+  } else {
+    return kpos <= qbase + i;
+  }
+}
+
+// The mask rows of query tokens t0 .. t0 + nt - 1 of batch row b as bits:
+// bits[t * words_stride + w] holds nodes 32w .. 32w + 31 of token t0 + t.
+__device__ __forceinline__ void load_mask_bits(const uint8_t* mask, int b,
+                                               int q_len, int t0, int nt,
+                                               int words_stride,
+                                               uint32_t* bits, int tid) {
+  const int words = (q_len + 31) / 32;
+  for (int idx = tid; idx < nt * words; idx += kThreads) {
+    const int t = idx / words;
+    const int w = idx % words;
+    const uint8_t* src =
+        mask + ((long long)b * q_len + t0 + t) * q_len + w * 32;
+    const int n = min(32, q_len - w * 32);
+    uint32_t x = 0;
+    for (int j = 0; j < n; ++j) x |= (src[j] != 0 ? 1u : 0u) << j;
+    bits[t * words_stride + w] = x;
+  }
+}
+
 constexpr int ROWS = 64;  // query rows per block of flash_decode_partial
 constexpr int PS = KB + 1;  // padded row of the probability tile
 
@@ -220,7 +274,7 @@ constexpr size_t partial_smem_bytes() {
 // 32 keys at a time through shared memory. Both products are register-
 // tiled: a thread scores 4 rows x 4 keys and accumulates 8 rows x D/16
 // columns, so each shared-memory read feeds several FMAs.
-template <typename T, typename S, int D, bool PAGED>
+template <typename T, typename S, int D, bool PAGED, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
     flash_decode_partial(const T* __restrict__ q, const S* __restrict__ k,
                          const S* __restrict__ v,
@@ -228,6 +282,7 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ vs,
                          const int* __restrict__ pos,
                          const int* __restrict__ bt,
+                         const uint8_t* __restrict__ mask,
                          float* __restrict__ o_part,
                          float* __restrict__ m_part,
                          float* __restrict__ l_part, int q_len, int H, int KV,
@@ -254,6 +309,8 @@ __global__ void __launch_bounds__(kThreads)
   float* sM = sP + ROWS * PS;    // [ROWS] running max
   float* sL = sM + ROWS;         // [ROWS] running sum
   float* sA = sL + ROWS;         // [ROWS] this chunk's rescale factor
+  // MASKED: the mask bits of the tile's query tokens (at most ROWS)
+  __shared__ uint32_t sMask[MASKED ? ROWS * kMaskWords : 1];
 
   const int tid = threadIdx.x;
   const int split = blockIdx.x;
@@ -268,8 +325,12 @@ __global__ void __launch_bounds__(kThreads)
   const int len = min(pos[b] + q_len, max_len);
   const int qbase = len - q_len;  // absolute position of bundle token 0
   const int q_hi = qbase + (row0 + nr - 1) / group;
+  const int t0 = row0 / group;  // the tile's first query token
   const int k_begin = split * split_keys;
-  const int k_end = min(min(k_begin + split_keys, len), q_hi + 1);
+  // the tile's last visible key: its last token's causal edge, or (with
+  // a mask, which may reveal any bundle node) the row's length
+  const int k_end = MASKED ? min(k_begin + split_keys, len)
+                           : min(min(k_begin + split_keys, len), q_hi + 1);
   const long long part = ((long long)bk * n_split + split) * gq + row0;
 
   if (k_begin >= k_end) {
@@ -305,6 +366,9 @@ __global__ void __launch_bounds__(kThreads)
     sM[r] = kNegInf;
     sL[r] = 0.f;
   }
+  if constexpr (MASKED)  // read after the chunk loop's first barrier
+    load_mask_bits(mask, b, q_len, t0, (row0 + nr - 1) / group - t0 + 1,
+                   kMaskWords, sMask, tid);
 
   const int rg = tid / KG;  // score tile: rows rg*4 .. rg*4+3
   const int kg = tid % KG;  //             keys kg + KG*w
@@ -370,13 +434,15 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int r = rg * 4 + u;
-      const int qpos = qbase + (row0 + r) / group;
+      const int ti = (row0 + r) / group;  // the row's query token
+      const uint32_t* mrow = sMask + (MASKED ? (ti - t0) * kMaskWords : 0);
       bool vis[KT];
       float mx = kNegInf;
 #pragma unroll
       for (int w = 0; w < KT; ++w) {
         const int j = kg + KG * w;
-        vis[w] = r < nr && j < kbv && kc + j <= qpos;
+        vis[w] = r < nr && j < kbv &&
+                 visible<MASKED>(kc + j, qbase, ti, mrow);
         s[u][w] = vis[w] ? s[u][w] * scale : kNegInf;
         mx = fmaxf(mx, s[u][w]);
       }
@@ -448,13 +514,15 @@ __global__ void __launch_bounds__(kThreads)
 // staged in shared memory, and every warp works even for one query row.
 // The four warps' (m, l, acc) merge through shared memory into the same
 // partial layout as flash_decode_partial.
-template <typename T, typename S, int D, int SR, bool PAGED>
+template <typename T, typename S, int D, int SR, bool PAGED, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
     flash_decode_rows(const T* __restrict__ q, const S* __restrict__ k,
                       const S* __restrict__ v, const float* __restrict__ ks,
                       const float* __restrict__ vs,
                       const int* __restrict__ pos,
-                      const int* __restrict__ bt, float* __restrict__ o_part,
+                      const int* __restrict__ bt,
+                      const uint8_t* __restrict__ mask,
+                      float* __restrict__ o_part,
                       float* __restrict__ m_part, float* __restrict__ l_part,
                       int q_len, int H, int KV, int max_len, int bs, int nb,
                       int split_keys, float scale) {
@@ -463,6 +531,8 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float sM[kWarps][SR];
   __shared__ float sL[kWarps][SR];
   __shared__ float sAcc[kWarps][SR][D];
+  // MASKED: one word of mask bits per query token (q_len <= SR <= 8)
+  __shared__ uint32_t sMask[MASKED ? SR : 1];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -478,7 +548,8 @@ __global__ void __launch_bounds__(kThreads)
   const int qbase = len - q_len;
   const int q_hi = qbase + (gq - 1) / group;
   const int k_begin = split * split_keys;
-  const int k_end = min(min(k_begin + split_keys, len), q_hi + 1);
+  const int k_end = MASKED ? min(k_begin + split_keys, len)
+                           : min(min(k_begin + split_keys, len), q_hi + 1);
   const long long part = ((long long)bk * n_split + split) * gq;
 
   if (k_begin >= k_end) {
@@ -489,6 +560,11 @@ __global__ void __launch_bounds__(kThreads)
       l_part[part + r] = 0.f;
     }
     return;
+  }
+
+  if constexpr (MASKED) {
+    load_mask_bits(mask, b, q_len, 0, q_len, 1, sMask, tid);
+    __syncthreads();
   }
 
   float qv[SR][E], acc[SR][E], m[SR], l[SR];
@@ -530,7 +606,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int r = 0; r < SR; ++r) {
       if (r < gq) {
-        const int qpos = qbase + r / group;
+        const int ti = r / group;  // the row's query token
+        const uint32_t* mrow = sMask + (MASKED ? ti : 0);
         float sc[U];
         float mx = m[r];
 #pragma unroll
@@ -539,7 +616,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int e = 0; e < E; ++e) dot = fmaf(qv[r][e], kx[u][e], dot);
           dot = warp_sum(dot);
-          const bool vis = kc + u < k_end && kc + u <= qpos;
+          const bool vis = kc + u < k_end &&
+                           visible<MASKED>(kc + u, qbase, ti, mrow);
           sc[u] = vis ? dot * scale : kNegInf;
           mx = fmaxf(mx, sc[u]);
         }
@@ -547,7 +625,8 @@ __global__ void __launch_bounds__(kThreads)
         float ps = 0.f;
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          const bool vis = kc + u < k_end && kc + u <= qpos;
+          const bool vis = kc + u < k_end &&
+                           visible<MASKED>(kc + u, qbase, ti, mrow);
           sc[u] = vis ? expf(sc[u] - mx) : 0.f;
           ps += sc[u];
         }
@@ -637,6 +716,7 @@ struct Args {
   const float* vs;
   const int* pos;
   const int* bt;
+  const uint8_t* mask;
   float* o_part;
   float* m_part;
   float* l_part;
@@ -645,10 +725,10 @@ struct Args {
   float scale;
 };
 
-template <typename T, typename S, int D, bool PAGED>
+template <typename T, typename S, int D, bool PAGED, bool MASKED>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = partial_smem_bytes<D>();
-  auto kern = flash_decode_partial<T, S, D, PAGED>;
+  auto kern = flash_decode_partial<T, S, D, PAGED, MASKED>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -660,7 +740,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const dim3 grid(a.n_split, (gq + ROWS - 1) / ROWS, a.B * a.KV);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const S*>(a.k),
-      static_cast<const S*>(a.v), a.ks, a.vs, a.pos, a.bt, a.o_part,
+      static_cast<const S*>(a.v), a.ks, a.vs, a.pos, a.bt, a.mask, a.o_part,
       a.m_part, a.l_part,
       a.q_len, a.H, a.KV, a.max_len, a.bs, a.nb, a.split_keys, a.scale);
   cudaError_t e = cudaGetLastError();
@@ -671,16 +751,17 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, typename S, int D, int SR, bool PAGED>
+template <typename T, typename S, int D, int SR, bool PAGED, bool MASKED>
 cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
   const int gq = a.q_len * (a.H / a.KV);
   if (gq > SR) return cudaErrorInvalidValue;
   const dim3 grid(a.n_split, 1, a.B * a.KV);
-  flash_decode_rows<T, S, D, SR, PAGED><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const S*>(a.k),
-      static_cast<const S*>(a.v), a.ks, a.vs, a.pos, a.bt, a.o_part,
-      a.m_part, a.l_part,
-      a.q_len, a.H, a.KV, a.max_len, a.bs, a.nb, a.split_keys, a.scale);
+  flash_decode_rows<T, S, D, SR, PAGED, MASKED>
+      <<<grid, kThreads, 0, stream>>>(
+          static_cast<const T*>(a.q), static_cast<const S*>(a.k),
+          static_cast<const S*>(a.v), a.ks, a.vs, a.pos, a.bt, a.mask,
+          a.o_part, a.m_part, a.l_part,
+          a.q_len, a.H, a.KV, a.max_len, a.bs, a.nb, a.split_keys, a.scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   flash_decode_merge<T, D><<<dim3(gq, a.B * a.KV), kThreads, 0, stream>>>(
@@ -691,33 +772,50 @@ cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
 
 // rows 1, 2, 4, 8: the small-bundle kernel (one tile); 64: the tiled
 // kernel (ROWS query rows per block)
-template <typename T, typename S, int D, bool PAGED>
+template <typename T, typename S, int D, bool PAGED, bool MASKED>
 cudaError_t by_rows(const Args& a, int rows, cudaStream_t stream) {
-  if (rows == 1) return launch_rows<T, S, D, 1, PAGED>(a, stream);
-  if (rows == 2) return launch_rows<T, S, D, 2, PAGED>(a, stream);
-  if (rows == 4) return launch_rows<T, S, D, 4, PAGED>(a, stream);
-  if (rows == 8) return launch_rows<T, S, D, 8, PAGED>(a, stream);
-  if (rows == ROWS) return launch<T, S, D, PAGED>(a, stream);
+  if (rows == 1) return launch_rows<T, S, D, 1, PAGED, MASKED>(a, stream);
+  if (rows == 2) return launch_rows<T, S, D, 2, PAGED, MASKED>(a, stream);
+  if (rows == 4) return launch_rows<T, S, D, 4, PAGED, MASKED>(a, stream);
+  if (rows == 8) return launch_rows<T, S, D, 8, PAGED, MASKED>(a, stream);
+  if (rows == ROWS) return launch<T, S, D, PAGED, MASKED>(a, stream);
   return cudaErrorInvalidValue;
 }
 
-template <typename T, typename S, bool PAGED>
+template <typename T, typename S, bool PAGED, bool MASKED>
 cudaError_t by_dim(const Args& a, int D, int rows, cudaStream_t stream) {
-  if (D == 64) return by_rows<T, S, 64, PAGED>(a, rows, stream);
-  if (D == 128) return by_rows<T, S, 128, PAGED>(a, rows, stream);
+  if (D == 64) return by_rows<T, S, 64, PAGED, MASKED>(a, rows, stream);
+  if (D == 128) return by_rows<T, S, 128, PAGED, MASKED>(a, rows, stream);
   return cudaErrorInvalidValue;
 }
 
 // kv_code: 0 = K/V stored in T, 1 = int8, 2 = fp8 e4m3 (with scales)
-template <typename T, bool PAGED>
+template <typename T, bool PAGED, bool MASKED>
 cudaError_t by_storage(const Args& a, int kv_code, int D, int rows,
                        cudaStream_t stream) {
-  if (kv_code == 0) return by_dim<T, T, PAGED>(a, D, rows, stream);
+  if (kv_code == 0) return by_dim<T, T, PAGED, MASKED>(a, D, rows, stream);
   if (a.ks == nullptr || a.vs == nullptr) return cudaErrorInvalidValue;
-  if (kv_code == 1) return by_dim<T, int8_t, PAGED>(a, D, rows, stream);
+  if (kv_code == 1)
+    return by_dim<T, int8_t, PAGED, MASKED>(a, D, rows, stream);
   if (kv_code == 2)
-    return by_dim<T, __nv_fp8_e4m3, PAGED>(a, D, rows, stream);
+    return by_dim<T, __nv_fp8_e4m3, PAGED, MASKED>(a, D, rows, stream);
   return cudaErrorInvalidValue;
+}
+
+// the three layouts: contiguous, paged, paged with an ancestor mask (the
+// contiguous cache takes no mask, as the TPU kernel's)
+template <typename T>
+cudaError_t by_layout(const Args& a, int kv_code, int D, int rows,
+                      cudaStream_t stream) {
+  if (a.bt == nullptr) {
+    if (a.mask != nullptr) return cudaErrorInvalidValue;
+    return by_storage<T, false, false>(a, kv_code, D, rows, stream);
+  }
+  if (a.mask != nullptr) {
+    if (a.q_len > kMaskWords * 32) return cudaErrorInvalidValue;
+    return by_storage<T, true, true>(a, kv_code, D, rows, stream);
+  }
+  return by_storage<T, true, false>(a, kv_code, D, rows, stream);
 }
 
 }  // namespace
@@ -728,14 +826,16 @@ cudaError_t by_storage(const Args& a, int kv_code, int D, int rows,
 // 0 keeps k/v in q's dtype (ks/vs unused); 1 (int8) and 2 (fp8 e4m3)
 // read narrow k/v with their f32 scales ks/vs [.., KV] (the cache or
 // pool shape without D).
+// mask (paged only; nullptr = causal bundle) is the [B, q_len, q_len]
+// ancestor mask as bytes, nonzero = visible, q_len <= 256.
 // o_part [B*KV, n_split, gq, D], m_part/l_part [B*KV, n_split, gq] are
 // fp32 scratch owned by the caller. Returns the cudaError_t of the
 // launches (0 = both were accepted).
 extern "C" int paddle_flash_decode(const void* q, const void* k, const void* v,
                                    const void* ks, const void* vs,
                                    const void* pos, const void* bt,
-                                   void* o_part, void* m_part, void* l_part,
-                                   void* out, int is_bf16, int kv_code,
+                                   const void* mask, void* o_part,
+                                   void* m_part, void* l_part, void* out, int is_bf16, int kv_code,
                                    int B, int q_len,
                                    int H, int KV, int D, int max_len, int bs,
                                    int nb, int n_split, int split_keys,
@@ -747,6 +847,7 @@ extern "C" int paddle_flash_decode(const void* q, const void* k, const void* v,
          static_cast<const float*>(vs),
          static_cast<const int*>(pos),
          static_cast<const int*>(bt),
+         static_cast<const uint8_t*>(mask),
          static_cast<float*>(o_part),
          static_cast<float*>(m_part),
          static_cast<float*>(l_part),
@@ -762,13 +863,8 @@ extern "C" int paddle_flash_decode(const void* q, const void* k, const void* v,
          split_keys,
          scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool paged = bt != nullptr;
-  cudaError_t e;
-  if (is_bf16)
-    e = paged ? by_storage<__nv_bfloat16, true>(a, kv_code, D, rows, st)
-              : by_storage<__nv_bfloat16, false>(a, kv_code, D, rows, st);
-  else
-    e = paged ? by_storage<float, true>(a, kv_code, D, rows, st)
-              : by_storage<float, false>(a, kv_code, D, rows, st);
+  const cudaError_t e =
+      is_bf16 ? by_layout<__nv_bfloat16>(a, kv_code, D, rows, st)
+              : by_layout<float>(a, kv_code, D, rows, st);
   return static_cast<int>(e);
 }

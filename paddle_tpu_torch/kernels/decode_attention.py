@@ -9,7 +9,11 @@ beside it:
   caches (the ``generate`` decode step, q_len <= ``MAX_DECODE_Q_LEN``);
 - ``paged_flash_decode_attention`` over [num_blocks, bs, KV, d] pools
   addressed through per-row block tables (the serving engine's decode
-  step and every chunked-prefill bundle, q_len <= ``MAX_PAGED_Q_LEN``).
+  step, every chunked-prefill bundle and every speculative verify
+  bundle, q_len <= ``MAX_PAGED_Q_LEN``). With ``ancestor_mask`` it
+  scores a BFS-flattened draft tree (K8): each bundle node sees every
+  committed position and, inside the bundle, only its ancestors and
+  itself.
 
 Both take QUANTIZED caches too: int8 / float8_e4m3 K/V with their
 per-token-per-head f32 absmax scales (``k_scale``/``v_scale``, shaped
@@ -21,7 +25,8 @@ narrow bytes cross device memory.
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; there is no fallback. Each
 wrapper counts its launches in ``LAUNCHES``, quantized launches under
-their own ``*_quant`` keys.
+their own ``*_quant`` keys and tree bundles under ``*_tree`` /
+``*_tree_quant``.
 
 ``decode_dispatch`` / ``paged_decode_dispatch`` keep the JAX package's
 gates (external mask, q_len, dtype, grad mode): a declined call runs
@@ -45,15 +50,22 @@ from ._build import load_library
 __all__ = ["flash_decode_attention", "flash_decode_attention_ref",
            "paged_flash_decode_attention", "paged_flash_decode_attention_ref",
            "decode_dispatch", "paged_decode_dispatch", "MAX_DECODE_Q_LEN",
-           "MAX_PAGED_Q_LEN", "LAUNCHES", "DISPATCH_HITS",
+           "MAX_PAGED_Q_LEN", "MAX_SPEC_K", "spec_tree_width",
+           "spec_verify_eligibility", "ancestor_visibility", "LAUNCHES",
+           "DISPATCH_HITS",
            "DISPATCH_FALLBACKS", "reset_counters"]
 
 # the contiguous kernel serves the short-query decode window; longer
 # prompts go to the plain attention (XLA in the JAX package)
 MAX_DECODE_Q_LEN = 8
 
-# the paged kernel also serves chunked-prefill bundles
+# the paged kernel also serves chunked-prefill bundles and speculative
+# verify bundles (q_len = spec_k + 1, or a draft tree's node count)
 MAX_PAGED_Q_LEN = 256
+
+# largest per-round draft count the serving engine accepts: the verify
+# bundle must fit the paged kernel's query window
+MAX_SPEC_K = MAX_PAGED_Q_LEN - 1
 
 NEG_INF = -1e30
 
@@ -62,7 +74,9 @@ _KEYS_PER_CHUNK = 32
 
 LAUNCHES = {"flash_decode_attention": 0, "paged_flash_decode_attention": 0,
             "flash_decode_attention_quant": 0,
-            "paged_flash_decode_attention_quant": 0}
+            "paged_flash_decode_attention_quant": 0,
+            "paged_flash_decode_attention_tree": 0,
+            "paged_flash_decode_attention_tree_quant": 0}
 DISPATCH_HITS: Counter = Counter()
 DISPATCH_FALLBACKS: Counter = Counter()
 
@@ -119,6 +133,53 @@ def paged_decode_dispatch(model: str, *, q_len: int, has_mask: bool,
     return False
 
 
+def spec_tree_width(spec_tree) -> int:
+    """Node count of a draft token tree with per-depth branching factors
+    ``spec_tree`` (root + every level): ``[4, 2, 2]`` -> 1 + 4 + 8 + 16
+    = 29, the tree verify bundle's q_len."""
+    w = wl = 1
+    for f in spec_tree:
+        wl *= int(f)
+        w += wl
+    return w
+
+
+def spec_verify_eligibility(spec_k: int, dtype, spec_tree=None):
+    """Will a speculative verify bundle (q_len = spec_k + 1 for a chain,
+    the flattened node count for a ``spec_tree``) take the paged kernel,
+    and if not, why? Called once per engine at construction; a decline
+    is counted in ``DISPATCH_FALLBACKS`` under ``spec_<reason>`` /
+    ``spec_tree_<reason>``. Returns (ok, reason)."""
+    if spec_tree is not None:
+        prefix, width = "spec_tree_", spec_tree_width(spec_tree)
+    else:
+        prefix, width = "spec_", spec_k + 1
+    reason = None
+    if width > MAX_PAGED_Q_LEN:
+        reason = "q_len"
+    elif str(dtype).split(".")[-1] not in ("float32", "bfloat16"):
+        reason = "dtype"
+    if reason is None:
+        return True, None
+    DISPATCH_FALLBACKS[prefix + reason] += 1
+    return False, reason
+
+
+def ancestor_visibility(start, mask, T: int):
+    """[B, q_len, T] bool: which of T cache positions bundle token i of
+    row b sees when the bundle sits at positions start[b] .. start[b] +
+    q_len - 1 under the ancestor ``mask`` [B, q_len, q_len] (True =
+    visible): every position before the bundle, and bundle node j where
+    mask[b, i, j]; nothing past the bundle."""
+    B, q_len = mask.shape[0], mask.shape[1]
+    rel = torch.arange(T, device=mask.device)[None, :] \
+        - start.to(mask.device).long()[:, None]              # [B, T]
+    in_bundle = (rel >= 0) & (rel < q_len)
+    anc = torch.gather(mask, 2, rel.clamp(0, q_len - 1)[:, None, :]
+                       .expand(B, q_len, T))
+    return (rel < 0)[:, None, :] | (in_bundle[:, None, :] & anc)
+
+
 def _positions(positions, B: int, device) -> torch.Tensor:
     """Per-row int32 [B] positions from an int, a 0-d or a [B] tensor."""
     if isinstance(positions, torch.Tensor):
@@ -136,10 +197,12 @@ def _check_heads(q, kv_heads: int) -> int:
     return H // kv_heads
 
 
-def _attend_ref(q, kc, vc, lens, scale: float):
+def _attend_ref(q, kc, vc, lens, scale: float, mask=None):
     """Plain masked softmax attention of the query bundle over a
     contiguous view [B, T, KV, d]; row r = i*group + g of kv head h sits
-    at position (len - q_len) + r // group and sees keys kpos <= it."""
+    at position (len - q_len) + r // group and sees keys kpos <= it.
+    With ``mask`` [B, q_len, q_len] (bool, True = visible), token i sees
+    every key before the bundle and bundle node j where mask[b, i, j]."""
     B, q_len, H, d = q.shape
     T, KV = kc.shape[1], kc.shape[2]
     group = H // KV
@@ -150,9 +213,14 @@ def _attend_ref(q, kc, vc, lens, scale: float):
     vf = vc.float().permute(0, 2, 1, 3)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale      # [B, KV, gq, T]
     rows = torch.arange(gq, device=q.device) // group
-    qpos = (lens.long() - q_len)[:, None] + rows[None, :]   # [B, gq]
     kpos = torch.arange(T, device=q.device)
-    vis = (kpos[None, None, :] <= qpos[:, :, None])[:, None]  # [B, 1, gq, T]
+    qbase = lens.long() - q_len                              # [B]
+    if mask is None:
+        qpos = qbase[:, None] + rows[None, :]                # [B, gq]
+        vis = kpos[None, None, :] <= qpos[:, :, None]        # [B, gq, T]
+    else:
+        vis = ancestor_visibility(qbase, mask, T)[:, rows]   # [B, gq, T]
+    vis = vis[:, None]                                       # [B, 1, gq, T]
     s = s.masked_fill(~vis, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(vis, torch.exp(s - m), torch.zeros((), device=q.device))
@@ -203,10 +271,11 @@ def flash_decode_attention_ref(q, k_cache, v_cache, positions,
 
 def paged_flash_decode_attention_ref(q, k_pool, v_pool, block_table,
                                      positions, sm_scale=None, k_scale=None,
-                                     v_scale=None):
+                                     v_scale=None, ancestor_mask=None):
     """Plain PyTorch version of ``paged_flash_decode_attention``: gather
     the rows' blocks into a contiguous view (dequantized into q's dtype
-    for a quantized pool), then attend."""
+    for a quantized pool), then attend (under the ancestor mask of a
+    tree bundle)."""
     B, q_len, _, d = q.shape
     _check_heads(q, k_pool.shape[2])
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
@@ -218,7 +287,8 @@ def paged_flash_decode_attention_ref(q, k_pool, v_pool, block_table,
         vc = _dequant(vc, _take_blocks(v_scale, bt), q.dtype)
     pos = _positions(positions, B, q.device)
     lens = torch.clamp(pos + q_len, max=nb * bs)
-    return _attend_ref(q, kc, vc, lens, scale)
+    mask = _check_mask(ancestor_mask, B, q_len, q.device)
+    return _attend_ref(q, kc, vc, lens, scale, mask)
 
 
 _SM_COUNT: dict = {}
@@ -260,15 +330,28 @@ def _check_inputs(name, q, k, v, ks, vs, scale_shape, tensors):
     return _KV_CODES[fmt]
 
 
+def _check_mask(ancestor_mask, B: int, q_len: int, device):
+    """The [B, q_len, q_len] ancestor mask as a contiguous bool tensor on
+    ``device`` (None stays None)."""
+    if ancestor_mask is None:
+        return None
+    if tuple(ancestor_mask.shape) != (B, q_len, q_len):
+        raise ValueError(f"ancestor_mask must be [B={B}, q_len={q_len}, "
+                         f"q_len={q_len}], got "
+                         f"{tuple(ancestor_mask.shape)}")
+    return ancestor_mask.to(device=device, dtype=torch.bool).contiguous()
+
+
 def _launch(name: str, q, k, v, ks, vs, pos, bt, max_len: int, bs: int,
-            nb: int, scale: float):
+            nb: int, scale: float, mask=None):
     """Validate, size the split, allocate partials and launch the CUDA
     kernel pair (partials + merge) on the current stream."""
     B, q_len, H, d = q.shape
     KV = k.shape[2]
     group = _check_heads(q, KV)
     tensors = [q, k, v, pos] + ([bt] if bt is not None else []) \
-        + ([ks, vs] if ks is not None else [])
+        + ([ks, vs] if ks is not None else []) \
+        + ([mask] if mask is not None else [])
     kv_code = _check_inputs(name, q, k, v, ks, vs, tuple(k.shape[:3]),
                             tensors)
     if d not in (64, 128):
@@ -280,6 +363,9 @@ def _launch(name: str, q, k, v, ks, vs, pos, bt, max_len: int, bs: int,
     if pos.dtype != torch.int32 or (bt is not None
                                     and bt.dtype != torch.int32):
         raise TypeError(f"{name}: positions and block table must be int32")
+    if mask is not None and (bt is None or q_len > MAX_PAGED_Q_LEN):
+        raise ValueError(f"{name}: an ancestor mask needs a paged pool and "
+                         f"q_len <= {MAX_PAGED_Q_LEN}, got q_len {q_len}")
     gq = q_len * group
     if gq <= 8:
         # small bundle (decode): one block streams keys through all warps
@@ -307,7 +393,7 @@ def _launch(name: str, q, k, v, ks, vs, pos, bt, max_len: int, bs: int,
         ks.data_ptr() if ks is not None else None,
         vs.data_ptr() if vs is not None else None, pos.data_ptr(),
         bt.data_ptr() if bt is not None else None,
-        o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+        mask.data_ptr() if mask is not None else None, o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
         out.data_ptr(), int(q.dtype == torch.bfloat16), kv_code, B, q_len,
         H, KV, d, max_len, bs, nb, n_split, split_keys, rows, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -349,7 +435,8 @@ def flash_decode_attention(q, k_cache, v_cache, positions, sm_scale=None,
 
 
 def paged_flash_decode_attention(q, k_pool, v_pool, block_table, positions,
-                                 sm_scale=None, k_scale=None, v_scale=None):
+                                 sm_scale=None, k_scale=None, v_scale=None,
+                                 ancestor_mask=None):
     """Flash-decode attention over PAGED KV pools.
 
     q: [B, q_len, heads, d] (a decode step or one chunked-prefill
@@ -362,12 +449,20 @@ def paged_flash_decode_attention(q, k_pool, v_pool, block_table, positions,
     Quantized pools: int8/fp8 k/v with ``k_scale``/``v_scale``
     [num_blocks, block_size, kv_heads] f32 (``make_paged_kv_pools``'
     ``ks``/``vs``), read through the same table and dequantized in the
-    kernel; counted under ``paged_flash_decode_attention_quant``."""
+    kernel; counted under ``paged_flash_decode_attention_quant``.
+
+    Tree-speculative bundles (K8): ``ancestor_mask`` [B, q_len, q_len]
+    bool (True = bundle node i may attend bundle node j) replaces only
+    the in-bundle causal mask; every query still attends all of its
+    row's past KV. A causal lower-triangular mask gives the maskless
+    output bit for bit. Counted under ``paged_flash_decode_attention_tree``
+    (``_tree_quant`` over quantized pools)."""
     quant = _scales(k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_flash_decode_attention_ref(q, k_pool, v_pool,
                                                 block_table, positions,
-                                                sm_scale, k_scale, v_scale)
+                                                sm_scale, k_scale, v_scale,
+                                                ancestor_mask)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode_attention: unsupported device "
                          f"{q.device}")
@@ -379,6 +474,10 @@ def paged_flash_decode_attention(q, k_pool, v_pool, block_table, positions,
     pos = _positions(positions, B, q.device)
     bt = block_table.to(device=q.device, dtype=torch.int32).contiguous()
     nb, bs = bt.shape[1], k_pool.shape[1]
-    name = "paged_flash_decode_attention" + ("_quant" if quant else "")
+    mask = _check_mask(ancestor_mask, B, q.shape[1], q.device)
+    name = "paged_flash_decode_attention" + (
+        "_tree" if mask is not None else "") + ("_quant" if quant else "")
+    # the kernel reads the mask as bytes, nonzero = visible
     return _launch(name, q, k_pool, v_pool, k_scale, v_scale, pos, bt,
-                   nb * bs, bs, nb, scale)
+                   nb * bs, bs, nb, scale,
+                   mask.view(torch.uint8) if mask is not None else None)

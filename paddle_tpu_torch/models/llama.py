@@ -9,7 +9,12 @@ Attention takes the JAX model's branches:
   k/v are written in place, then the flash-decode kernels run when
   ``decode_dispatch`` / ``paged_decode_dispatch`` accept the call, and
   the plain grouped attention over the masked cache runs where they
-  decline (where the JAX package runs XLA). A quantized cache (int8/fp8
+  decline (where the JAX package runs XLA). A speculative draft tree
+  rides the cache dicts as ``tree_mask`` [b, s, s] (the bundle's
+  ancestor mask) and ``tree_depth`` [s] (node i's rotary position is
+  offset + depth[i], not offset + i): the paged kernel scores it under
+  the mask (K8), a contiguous cache counts it as an external mask and
+  takes the plain attention. A quantized cache (int8/fp8
   values with ``ks``/``vs`` scales) is written quantized and read by the
   kernels' dequantizing variants, or dequantized for the plain
   attention. With ``use_flash_attention``, a contiguous-cache prefill at
@@ -92,10 +97,12 @@ def _rope_tables(head_dim: int, max_pos: int, theta: float):
 
 def _rope_index(position_offset, b: int, s: int, max_pos: int, device):
     """[b, s] (or [s]) table rows for an int, 0-d, [b] or [b, s] offset.
-    Rows past the table clamp to its last entry: only the pad tokens of
-    a final prefill chunk can reach them, and their outputs are unused."""
+    Rows past the table clamp to its last entry (as the JAX package's
+    gather clamps): only pad tokens of a final prefill chunk and bundle
+    nodes past a row's live width reach them, and their outputs are
+    unused."""
     if isinstance(position_offset, torch.Tensor) and position_offset.dim() == 2:
-        return position_offset.long()
+        return position_offset.to(device).long().clamp(max=max_pos - 1)
     ar = torch.arange(s, device=device)
     if isinstance(position_offset, torch.Tensor) and position_offset.dim() == 1:
         idx = position_offset.to(device).long()[:, None] + ar[None, :]
@@ -250,6 +257,11 @@ class LlamaAttention(nn.Module):
         # quantized cache: int8/fp8 storage with "ks"/"vs" absmax scales;
         # the kernels dequantize as they load, the plain path at the gather
         quant_cache = "ks" in kv_cache
+        # a draft tree's [b, s, s] ancestor mask: the paged kernel takes
+        # it (K8); the contiguous kernel has no mask input, so there it
+        # counts as an external mask and the plain path builds the tree
+        # cache mask (update_static_kv_cache)
+        tree_mask = kv_cache.get("tree_mask")
         # flash prefill: at offset 0, causal attention over the prompt
         # alone equals the masked attention over the cache; paged caches
         # never take it (a chunk must read earlier blocks via the table)
@@ -261,7 +273,8 @@ class LlamaAttention(nn.Module):
         if not flash_prefill:
             dispatch = paged_decode_dispatch if paged else decode_dispatch
             use_kernel = dispatch("llama", q_len=s,
-                                  has_mask=attn_mask is not None,
+                                  has_mask=attn_mask is not None or (
+                                      tree_mask is not None and not paged),
                                   dtype=q.dtype, quantized=quant_cache)
         k_full, v_full, new_cache, mask = update_static_kv_cache(
             kv_cache, k, v, position_offset,
@@ -276,7 +289,8 @@ class LlamaAttention(nn.Module):
             if paged:
                 out = paged_flash_decode_attention(
                     q, new_cache["k"], new_cache["v"], new_cache["bt"],
-                    position_offset, k_scale=ks, v_scale=vs)
+                    position_offset, k_scale=ks, v_scale=vs,
+                    ancestor_mask=tree_mask)
             else:
                 out = flash_decode_attention(q, k_full, v_full,
                                              position_offset, k_scale=ks,
@@ -349,7 +363,17 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids, attn_mask=None, kv_caches=None,
                 position_offset=0):
         h = self.embed_tokens(input_ids)
-        rope = rope_factors(self.rope_cos, self.rope_sin, position_offset,
+        rope_pos = position_offset
+        depth = kv_caches[0].get("tree_depth") if kv_caches else None
+        if depth is not None:
+            # a draft tree: node i sits in cache slot offset + i, at
+            # rotary position offset + depth[i] (siblings share one)
+            b = h.shape[0]
+            po = torch.as_tensor(position_offset, device=h.device).long()
+            if po.dim() == 0:
+                po = po.expand(b)
+            rope_pos = po[:, None] + depth.to(h.device).long()[None, :]
+        rope = rope_factors(self.rope_cos, self.rope_sin, rope_pos,
                             h.shape[0], h.shape[1], h.dtype)
         if kv_caches is not None:
             new_caches = []

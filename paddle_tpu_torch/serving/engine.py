@@ -20,31 +20,49 @@ the worst-case length. On top of the pool:
   narrow values with per-token-per-head f32 scale pools (``ks``/``vs``)
   on the same blocks; chunks and decode steps write quantized and read
   through the dequantizing paged kernel, and a COW fork copies the
-  scales with the values.
+  scales with the values;
+- speculative decoding (``draft_model=``): a chain lane (``spec_k``
+  draft tokens a round, verified by the target as one q_len spec_k + 1
+  bundle) or a tree lane (``spec_tree`` branching factors; all nodes of
+  the flattened draft tree verified in one bundle under their ancestor
+  mask, the paged kernel's K8 path, and the accepted path's K/V moved
+  onto consecutive positions in both models' pools). The draft's pools
+  mirror the target's and share its block tables, so prefix sharing,
+  COW, chunked prefill and preemption drive both; rejected K/V is
+  rolled back by position. A request opts out, or shrinks its draft,
+  with ``SamplingParams.spec_k``.
 
-Each iteration runs the three programs of the JAX engine as eager
-PyTorch: a prefill chunk (``_chunk``), one decode step for the whole
-slot pool (``_step``) and the COW block copy (``_cow``). Inactive rows
+Each iteration runs the programs of the JAX engine as eager PyTorch: a
+prefill chunk (``_chunk``), one decode step for the whole slot pool
+(``_step``; with a draft model a draft and a verify, ``_spec_step``)
+and the COW block copy (``_cow``). Inactive rows
 keep the JAX conventions: a zeroed block-table row, so their writes
 land in the dump block, and ``pos`` pinned to 0.
 
 The engine is driven synchronously (``submit`` + ``step`` /
 ``run_until_idle``) and decodes greedily; outputs equal
-``generation.generate`` token for token.
+``generation.generate`` token for token, with speculation or without.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..generation import (_paged_flat_indices, kv_cache_bytes_per_token,
-                          make_cached_runner, make_paged_kv_pools)
+from ..generation import (_check_draft_vocab, _paged_flat_indices,
+                          _plan_tensors, _with_tree, draft_tree,
+                          kv_cache_bytes_per_token, kv_path_move,
+                          make_cached_runner, make_paged_kv_pools,
+                          path_commit, spec_accept_length, spec_tree_plan,
+                          tree_accept)
+from ..kernels.decode_attention import (MAX_PAGED_Q_LEN, MAX_SPEC_K,
+                                        spec_tree_width,
+                                        spec_verify_eligibility)
 from ..quantization.intx import KV_FORMATS, format_dtype
 from . import metrics as _sm
 from .block_pool import BlockPool, PoolExhaustedError, PrefixCache
@@ -73,6 +91,14 @@ class ServingConfig:
       dtype), ``"int8"`` or ``"fp8"`` (e4m3), the narrow ones with f32
       per-token-per-head absmax scales. Quantized blocks live in the
       paged pool, the only KV mode of this engine.
+    - ``spec_k``: draft tokens per speculative round on an engine built
+      with a ``draft_model`` (the verify bundle is spec_k + 1 positions
+      through the paged kernel); ignored without one.
+    - ``spec_tree``: per-level branching factors (e.g. ``[4, 2, 2]``)
+      turning the chain lane into a draft token TREE verified in one
+      bundle of ``spec_tree_width`` nodes. Mutually exclusive with a
+      non-default ``spec_k``; ``SamplingParams.spec_k`` then clamps the
+      tree depth per request.
     """
 
     max_slots: int = 4
@@ -84,6 +110,8 @@ class ServingConfig:
     prefill_chunk: int = 32
     prefix_caching: bool = True
     kv_format: str = "bf16"
+    spec_k: int = 4
+    spec_tree: Optional[Sequence[int]] = None
 
     def __post_init__(self):
         if self.kv_format not in KV_FORMATS:
@@ -104,6 +132,51 @@ class ServingConfig:
             raise ValueError(
                 f"num_blocks ({self.num_blocks}) must be >= 2: block 0 is "
                 f"the reserved dump block")
+        if not 0 <= int(self.spec_k) <= MAX_SPEC_K:
+            raise ValueError(
+                f"spec_k ({self.spec_k}) must be in [0, {MAX_SPEC_K}]: the "
+                f"speculative verify scores spec_k + 1 bundle positions in "
+                f"one paged flash-decode call, whose query window is "
+                f"MAX_PAGED_Q_LEN = {MAX_PAGED_Q_LEN}")
+        if self.spec_tree is not None:
+            factors = tuple(int(f) for f in self.spec_tree)
+            if not factors or any(f < 1 for f in factors):
+                raise ValueError(
+                    f"spec_tree must be a non-empty sequence of branching "
+                    f"factors >= 1 per draft level (e.g. [4, 2, 2]), got "
+                    f"{self.spec_tree!r}")
+            if int(self.spec_k) != 4:
+                raise ValueError(
+                    f"spec_tree ({list(factors)}) and a non-default spec_k "
+                    f"({self.spec_k}) are mutually exclusive: one engine "
+                    f"runs ONE speculative lane, the chain or the tree. "
+                    f"Drop spec_k (per-request depth clamps still ride "
+                    f"SamplingParams.spec_k) or drop spec_tree")
+            wnodes = spec_tree_width(factors)
+            if wnodes > MAX_PAGED_Q_LEN:
+                raise ValueError(
+                    f"spec_tree {list(factors)} flattens to {wnodes} nodes, "
+                    f"but the verify bundle scores every node in one paged "
+                    f"flash-decode call whose query window is "
+                    f"MAX_PAGED_Q_LEN = {MAX_PAGED_Q_LEN}: shrink the "
+                    f"branching factors or the depth")
+            self.spec_tree = factors
+
+    def validate_draft(self, model_config, draft_config):
+        """Speculative-lane compatibility of the target and draft models
+        (called by the engine when ``draft_model`` is given)."""
+        if self.spec_k < 1:
+            raise ValueError(
+                f"spec_k ({self.spec_k}) must be >= 1 when a draft_model is "
+                f"given: with 0 draft tokens per round the draft model is "
+                f"dead weight; drop draft_model instead")
+        _check_draft_vocab(model_config, draft_config)
+        if self.max_len > draft_config.max_position_embeddings:
+            raise ValueError(
+                f"max_len ({self.max_len}) exceeds the DRAFT model's "
+                f"max_position_embeddings "
+                f"({draft_config.max_position_embeddings}); the draft "
+                f"decodes the same positions the target does")
 
     def blocks_per_slot(self) -> int:
         return self.max_len // self.block_size
@@ -127,19 +200,23 @@ class _PrefillJob:
 class ServingEngine:
     """Request-level serving over one decoder model speaking the
     ``generation`` static-cache protocol. ``device=None`` resolves to
-    ``cuda``; the model must live on the engine's device."""
+    ``cuda``; the model (and the ``draft_model`` of a speculative
+    engine) must live on the engine's device."""
 
     def __init__(self, model, config: Optional[ServingConfig] = None,
-                 device=None, **overrides):
+                 device=None, draft_model=None, **overrides):
         if config is None:
             config = ServingConfig(**overrides)
         elif overrides:
             raise ValueError("pass ServingConfig OR keyword overrides, not both")
         self.device = resolve_device(device)
         param = next(model.parameters())
-        if param.device.type != self.device.type:
-            raise ValueError(f"the model lives on {param.device}, the engine "
-                             f"on {self.device}: build them on one device")
+        for m in (model, draft_model):
+            if m is not None and \
+                    next(m.parameters()).device.type != self.device.type:
+                raise ValueError(
+                    f"the model lives on {next(m.parameters()).device}, the "
+                    f"engine on {self.device}: build them on one device")
         self.config = config
         self.model = model
         mcfg = model.config
@@ -182,6 +259,43 @@ class ServingEngine:
         self._slot_blocks: List[List[int]] = [[] for _ in range(B)]
         self._slot_len = [0] * B                          # host mirror of pos
         self._jobs: List[Optional[_PrefillJob]] = [None] * B
+        self.draft_model = draft_model
+        self.spec = draft_model is not None
+        if self.spec:
+            self._init_spec(draft_model)
+
+    def _init_spec(self, draft_model):
+        """The speculative lane: the draft's pools (in the configuration's
+        ``kv_format``) mirror the target's and are addressed through the
+        same block tables, so one allocator, prefix cache and COW drive
+        both models' caches."""
+        config = self.config
+        config.validate_draft(self.model.config, draft_model.config)
+        self._spec_tree = config.spec_tree
+        if self._spec_tree is not None:
+            self._tree = spec_tree_plan(self._spec_tree)
+            self._tree_t = _plan_tensors(self._tree, self.device)
+            # SamplingParams.spec_k clamps the tree DEPTH on this lane, so
+            # the depth bounds it and sizes the accept histogram
+            self._spec_k = int(self._tree["depth"])
+        else:
+            self._tree = None
+            self._spec_k = int(config.spec_k)
+        # the verify bundle's expected path, recorded once; a decline is
+        # counted under spec_<reason> / spec_tree_<reason>
+        self._spec_verify_kernel, _ = spec_verify_eligibility(
+            self._spec_k, self._dtype, spec_tree=self._spec_tree)
+        self._drun = make_cached_runner(draft_model)
+        self._dpools = make_paged_kv_pools(
+            draft_model.config, self._nblocks, self.config.block_size,
+            next(draft_model.parameters()).dtype, config.kv_format,
+            device=self.device)
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._spec_rounds = 0
+        self._spec_draft_rounds = 0
+        # accepted drafts per round, 0..k (the path depth on the tree lane)
+        self._accept_hist = [0] * (self._spec_k + 1)
 
     # -- the three device programs --------------------------------------------
     def _chunk(self, bt_row, ids, pos0: int, valid: int, slot: int,
@@ -196,6 +310,12 @@ class ServingEngine:
                                     self.device)
         caches = [dict(c, bt=bt_row, slots=slots) for c in self._pools]
         logits, _ = self._run(ids, caches, pos0)
+        if self.spec:
+            # the draft rides along: both models' pools take the chunk
+            # through the one block table, so prefix-cached blocks carry
+            # both models' K/V and a resumed request re-prefills both
+            self._drun(ids, [dict(c, bt=bt_row, slots=slots)
+                             for c in self._dpools], pos0)
         self._chunks += 1
         if not is_last:
             return None
@@ -226,9 +346,9 @@ class ServingEngine:
     def _cow(self, src: int, dst: int):
         """Copy-on-write fork: duplicate physical block ``src`` into
         ``dst`` in every pool of every layer (K and V, and their scales
-        when quantized)."""
+        when quantized; the draft's pools too)."""
         with torch.no_grad():
-            for c in self._pools:
+            for c in self._pools + (self._dpools if self.spec else []):
                 for t in c.values():
                     t[dst].copy_(t[src])
 
@@ -542,21 +662,26 @@ class ServingEngine:
             self._update_occupancy_gauges()
             return worked
 
-        # every active row writes this step's K/V at its current length:
+        # every active row writes this step's K/V at its current length,
+        # or, speculatively, its whole bundle window [len, len + width):
         # crossing a block boundary allocates, a shared block forks;
         # allocation pressure preempts the latest-admitted request
         bs = self.config.block_size
         for i in list(active):
             if self._slot_req[i] is None or not self._decoding[i]:
                 continue  # preempted by an earlier row's reclaim
-            bi = self._slot_len[i] // bs
+            # _row_spec_len depends on host state that holds until the
+            # dispatch, so the bundle never writes past this coverage
+            m = self._row_spec_len(i) if self.spec else 1
             try:
-                if bi >= len(self._slot_blocks[i]):
-                    nid = self._reclaim_alloc(1, i)[0]
-                    self._slot_blocks[i].append(nid)
-                    self._bt[i, bi] = nid
-                else:
-                    self._ensure_writable(i, bi)
+                for bi in range(self._slot_len[i] // bs,
+                                (self._slot_len[i] + m - 1) // bs + 1):
+                    if bi >= len(self._slot_blocks[i]):
+                        nid = self._reclaim_alloc(1, i)[0]
+                        self._slot_blocks[i].append(nid)
+                        self._bt[i, bi] = nid
+                    else:
+                        self._ensure_writable(i, bi)
             except PoolExhaustedError:
                 self._preempt(i)
         active = [i for i in active
@@ -569,6 +694,8 @@ class ServingEngine:
         active_mask[active] = True
         bt_step = self._bt.copy()
         bt_step[~active_mask] = 0  # inactive rows -> dump block
+        if self.spec:
+            return self._spec_step(active, active_mask, bt_step)
         toks = self._step(torch.from_numpy(bt_step).to(self.device),
                           torch.from_numpy(active_mask).to(self.device))
         toks_np = toks.cpu().numpy()  # the step's one device->host sync
@@ -582,6 +709,164 @@ class ServingEngine:
             req.push_token(t, now)
             _sm.inc("tokens_total", label="generated")
             self._finish_or_keep(i, req, t, now)
+        return True
+
+    # -- the speculative iteration ---------------------------------------------
+    def _row_spec_len(self, slot: int) -> int:
+        """Live bundle width of one decoding slot this round: 1 + its
+        draft count, clamped by the request's own ``spec_k`` (0 -> width
+        1, a plain decode step riding the bundle), its remaining token
+        budget and the slot's KV room. On the tree lane the request's
+        spec_k clamps the DEPTH and the width is that BFS prefix."""
+        req = self._slot_req[slot]
+        p = req.params
+        k_req = self._spec_k if p.spec_k is None \
+            else max(0, min(int(p.spec_k), self._spec_k))
+        remaining = p.max_new_tokens - len(req.output_tokens)
+        room = self.config.max_len - self._slot_len[slot]
+        if self._spec_tree is not None:
+            depth_cap = max(0, min(k_req, remaining - 1))
+            width = int(self._tree["offsets"][depth_cap + 1])
+            return max(1, min(width, room))
+        return max(1, min(k_req + 1, remaining, room))
+
+    def _caches(self, pools, bt, pos, valid, n: int):
+        """Per-layer cache dicts of ``pools`` for a forward of ``n``
+        tokens per row at ``pos``: tokens past each row's ``valid`` write
+        to the dump block; on the tree lane the n-node ancestor mask and
+        depths ride along."""
+        slots = _paged_flat_indices(bt, pos, valid, self.config.block_size,
+                                    bt.shape[0], n, self.device)
+        if self._spec_tree is not None:
+            return _with_tree(pools, self._tree, self._tree_t, n,
+                              bt.shape[0], bt=bt, slots=slots)
+        return [dict(c, bt=bt, slots=slots) for c in pools]
+
+    def _draft_chain(self, bt, spec_valid):
+        """k cached draft forwards (q_len 1) proposing the bundle's draft
+        tokens, then a write-only forward of the last one (a full accept
+        advances past pos + k, whose draft K/V would otherwise be a
+        hole). Returns [B, k]."""
+        k = self._spec_k
+        tok, pos, drafts = self._tokens, self._pos, []
+        for j in range(k + 1):
+            logits, _ = self._drun(
+                tok[:, None],
+                self._caches(self._dpools, bt, pos + j,
+                             torch.clamp(spec_valid - j, min=0), 1),
+                pos + j)
+            if j < k:
+                tok = logits[:, 0].argmax(dim=-1)
+                drafts.append(tok)
+        return torch.stack(drafts, dim=1)
+
+    def _verify(self, bt, drafts, spec_valid, active):
+        """ONE target forward over the [B, width] bundle (the paged
+        kernel's q_len > 1 path; the tree lane under its ancestor mask),
+        the accept walk, and the state update: each row advances by its
+        own emit count. The tree lane then moves the accepted path's K/V
+        onto consecutive positions in both models' pools. Returns (the
+        emitted tokens [B, >= n_emit], n_emit [B])."""
+        pos = self._pos
+        bundle = torch.cat([self._tokens[:, None], drafts], dim=1)
+        logits, _ = self._run(bundle, self._caches(
+            self._pools, bt, pos, spec_valid, bundle.shape[1]), pos)
+        cand = logits.argmax(dim=-1)
+        if self._spec_tree is not None:
+            n_emit, path, emitted, last = tree_accept(
+                bundle, cand, spec_valid, self._tree, self._tree_t)
+            src, dst = path_commit(pos, path, n_emit)
+            bs = self.config.block_size
+            btl = bt.long()
+
+            def flat(tok):
+                blk = torch.clamp(tok // bs, 0, bt.shape[1] - 1)
+                return btl.gather(1, blk) * bs + tok % bs
+
+            kv_path_move(self._pools + self._dpools, flat(src), flat(dst))
+        else:
+            n_emit = spec_accept_length(drafts, cand, spec_valid)
+            emitted = cand
+            last = cand.gather(1, (n_emit - 1).clamp(min=0)[:, None])[:, 0]
+        self._tokens = torch.where(n_emit > 0, last, self._tokens)
+        self._pos = torch.where(
+            active, torch.clamp(pos + n_emit, max=self.config.max_len - 1),
+            torch.zeros((), dtype=torch.long, device=self.device)
+        ).to(torch.int32)
+        return emitted, n_emit
+
+    def _spec_step(self, active, active_mask, bt_step) -> bool:
+        """One speculative iteration for the whole pool: the draft (k
+        forwards on the chain lane, depth + 1 on the tree lane; skipped
+        when no live row wants more than a plain step), then ONE verify.
+        Delivers each row's emitted tokens."""
+        B = self.config.max_slots
+        spec_valid = np.zeros(B, np.int64)
+        for i in active:
+            spec_valid[i] = self._row_spec_len(i)
+        tree = self._spec_tree is not None
+        width = int(self._tree["nodes"]) if tree else self._spec_k + 1
+        # the bundle is always launched at full width, and the kernel
+        # takes a row's length as min(pos + width, table span): dump-block
+        # columns past max_len keep a bundle near the slot's end at its
+        # true positions (nodes past a row's live width write to the dump
+        # block, and no live node attends them)
+        pad = -(-(width - 1) // self.config.block_size)
+        bt_step = np.concatenate([bt_step, np.zeros((B, pad), np.int32)],
+                                 axis=1)
+        bt = torch.from_numpy(bt_step).to(self.device)
+        sv = torch.from_numpy(spec_valid).to(self.device)
+        with torch.no_grad():
+            if (spec_valid > 1).any():
+                if tree:
+                    drafts = draft_tree(
+                        self._drun,
+                        lambda n: self._caches(self._dpools, bt, self._pos,
+                                               torch.clamp(sv, max=n), n),
+                        self._tokens, self._pos, self._tree)[:, 1:]
+                else:
+                    drafts = self._draft_chain(bt, sv)
+                self._spec_draft_rounds += 1
+            else:
+                drafts = torch.zeros((B, width - 1), dtype=torch.long,
+                                     device=self.device)
+            emitted, n_emit = self._verify(
+                bt, drafts, sv, torch.from_numpy(active_mask).to(self.device))
+        em_np = emitted.cpu().numpy()   # the round's device->host sync
+        n_np = n_emit.cpu().numpy()
+        now = time.perf_counter()
+        _sm.inc("steps_total")
+        self._steps += 1
+        self._spec_rounds += 1
+        for i in active:
+            req = self._slot_req[i]
+            n = int(n_np[i])
+            drafted = int(spec_valid[i]) - 1
+            accepted = n - 1
+            if drafted > 0:
+                self._spec_drafted += drafted
+                self._spec_accepted += accepted
+                req.spec_drafted += drafted
+                req.spec_accepted += accepted
+                _sm.inc("spec_drafted_tokens", drafted)
+                _sm.inc("spec_accepted_tokens", accepted)
+                _sm.inc("spec_rejected_tokens", drafted - accepted)
+                _sm.observe("spec_accept_len", accepted)
+                if tree:
+                    # on the tree lane ``accepted`` is the accepted path's
+                    # depth: one draft node per committed level
+                    _sm.inc("spec_tree_nodes_drafted", drafted)
+                    _sm.inc("spec_tree_nodes_accepted", accepted)
+                    _sm.observe("spec_accept_depth", accepted)
+                self._accept_hist[accepted] += 1
+            self._slot_len[i] = min(self._slot_len[i] + n,
+                                    self.config.max_len - 1)
+            for j in range(n):
+                t = int(em_np[i, j])
+                req.push_token(t, now)
+                _sm.inc("tokens_total", label="generated")
+                if self._finish_or_keep(i, req, t, now):
+                    break
         return True
 
     def run_until_idle(self, max_steps: int = 1_000_000) -> int:
@@ -620,8 +905,62 @@ class ServingEngine:
             bf16 / max(1, self._kv_bytes_per_token), 3)
         return stats
 
+    def spec_stats(self) -> dict:
+        """Speculative-lane accounting: engine-lifetime drafted, accepted
+        and rejected totals, the accept rate and the accept-length digest
+        (exact percentiles over this engine's rounds)."""
+        if not self.spec:
+            return {"enabled": False}
+        hist = self._accept_hist
+        count = sum(hist)
+        total = sum(i * n for i, n in enumerate(hist))
+
+        def _pct(p):
+            target, seen = p * count, 0
+            for i, n in enumerate(hist):
+                seen += n
+                if seen >= target:
+                    return float(i)
+            return float(len(hist) - 1)
+
+        out = {
+            "enabled": True,
+            "mode": "tree" if self._spec_tree is not None else "chain",
+            "k": self._spec_k,
+            "verify_kernel": self._spec_verify_kernel,
+            "rounds": self._spec_rounds,
+            "draft_rounds": self._spec_draft_rounds,
+            "drafted_tokens": self._spec_drafted,
+            "accepted_tokens": self._spec_accepted,
+            "rejected_tokens": self._spec_drafted - self._spec_accepted,
+            "accept_rate": (self._spec_accepted / self._spec_drafted
+                            if self._spec_drafted else None),
+            "queue_spec_opted_out": self.scheduler.depth_spec_opted_out(),
+            "accept_len": {
+                **({f"p{round(p * 100)}": _pct(p)
+                    for p in (0.5, 0.95, 0.99)} if count else {}),
+                "hist": list(hist),
+                "mean": (total / count) if count else None,
+                "count": count},
+        }
+        if self._spec_tree is not None:
+            # drafted/accepted count NODES on this lane (most siblings lose
+            # by construction); the accepted path depth is the signal
+            out["tree"] = {
+                "factors": list(self._spec_tree),
+                "depth": int(self._tree["depth"]),
+                "nodes": int(self._tree["nodes"]),
+                "drafted_nodes": self._spec_drafted,
+                "accepted_nodes": self._spec_accepted,
+                # +1: the root's own target token commits with the path
+                "mean_accepted_path_len":
+                    (total / count) + 1.0 if count else None,
+            }
+        return out
+
     def stats(self) -> dict:
-        """Host-side counts: iterations, pool and prefix-cache state."""
+        """Host-side counts: iterations, pool and prefix-cache state, and
+        the speculative lane's (``spec``)."""
         return {
             "steps": self._steps,
             "prefill_chunks": self._chunks,
@@ -634,4 +973,5 @@ class ServingEngine:
             "kv_bytes_per_token": self._kv_bytes_per_token,
             "prefix_cache": (self.prefix_cache.stats()
                              if self.prefix_cache is not None else None),
+            "spec": self.spec_stats(),
         }

@@ -36,7 +36,14 @@ class RequestStatus:
 class SamplingParams:
     """Per-request decode knobs, the surface of ``generation.generate``.
     The port decodes greedily; ``do_sample=True`` is refused at submit
-    until the sampled-decode slice lands."""
+    until the sampled-decode slice lands.
+
+    ``spec_k`` is the per-request speculative override on a draft-model
+    engine: ``None`` takes the engine's k, ``0`` opts the request out of
+    speculation (it rides the verify bundle as a plain one-token step),
+    ``1..engine_k`` shrinks its draft (the tree depth on the tree lane);
+    larger values clamp to the engine's. Outputs are the same at every
+    setting."""
 
     max_new_tokens: int = 32
     do_sample: bool = False
@@ -45,6 +52,7 @@ class SamplingParams:
     top_p: float = 1.0
     eos_token_id: Optional[int] = None
     seed: int = 0
+    spec_k: Optional[int] = None
     priority: str = "interactive"
 
     def __post_init__(self):
@@ -94,6 +102,10 @@ class Request:
         self.queue_wait_total_s: float = 0.0
         self.preempt_count = 0
         self.cancel_requested = False
+        # speculative-lane accounting: draft tokens proposed for this
+        # request and accepted by the target, over all its rounds
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         # preemption state: (tokens_to_prefill, n_reselected) set when the
         # request is requeued for recompute; the generated tokens fold into
         # the next prefill and the final select's re-derived token is
@@ -175,6 +187,34 @@ class Request:
         if n <= 0:
             return None
         return (self.last_token_ts - self.first_token_ts) / n
+
+    def debug_row(self) -> dict:
+        """One row of a live request table."""
+        now = time.perf_counter()
+        return {
+            "request_id": self.id,
+            "status": self.status,
+            "priority": self.params.priority,
+            "slot": self.slot,
+            "prompt_len": int(len(self.prompt)),
+            "generated": len(self.output_tokens),
+            "max_new_tokens": self.params.max_new_tokens,
+            "age_s": round(now - self.arrival_ts, 4),
+            "queue_wait_s": round(self.queue_wait_total_s, 4)
+                if self.admitted_ts is not None else None,
+            "ttft_s": self.ttft_s,
+            "tpot_s": self.tpot_s,
+            "preemptions": self.preempt_count,
+            "spec_k": self.params.spec_k,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "spec_accept_rate": (round(self.spec_accepted
+                                       / self.spec_drafted, 4)
+                                 if self.spec_drafted else None),
+            "latency_s": (round(self.finish_ts - self.arrival_ts, 4)
+                          if self.finish_ts is not None else None),
+            "error": self.error,
+        }
 
     def __repr__(self):
         return (f"Request(id={self.id}, status={self.status}, "

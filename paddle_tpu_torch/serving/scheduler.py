@@ -100,6 +100,12 @@ class Scheduler:
             self._q.appendleft(req)
             _sm.set_gauge("queue_depth", len(self._q))
 
+    def depth_spec_opted_out(self) -> int:
+        """Queued requests that opted out of speculation
+        (``SamplingParams.spec_k == 0``)."""
+        with self._lock:
+            return sum(1 for r in self._q if r.params.spec_k == 0)
+
     def cancel(self, req: Request) -> bool:
         """Queued: removed now. Running: flagged; the engine frees the
         slot at the next step. Returns True while the request is live."""

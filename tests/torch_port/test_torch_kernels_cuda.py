@@ -1,4 +1,5 @@
-"""The CUDA flash-decode kernels against their plain PyTorch versions,
+"""The CUDA kernels (flash decode K4-K8, flash attention K1-K3 and the
+quantized matmul K9) against their plain PyTorch versions,
 on a GPU. Skipped where CUDA is absent; on a GPU machine (which has no
 jax) run this file alone:
 
@@ -213,3 +214,89 @@ def test_quant_matmul_kernel_matches_plain(M, N, K, dtype, fmt):
     want = tqm.quant_matmul_ref(x, w, scale)
     torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype],
                                rtol=0)
+
+
+def _tree_mask(factors, B):
+    """The [B, w, w] ancestor mask of a BFS-flattened draft tree, on the
+    card."""
+    from paddle_tpu_torch.generation import spec_tree_plan
+
+    anc = torch.from_numpy(spec_tree_plan(factors)["anc"])
+    return anc[None].expand(B, -1, -1).contiguous().cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("factors,group", [([2, 2], 1), ([2, 2], 4),
+                                           ([4, 2, 2], 1), ([4, 2, 2], 4),
+                                           ([1, 1, 1, 1], 1)])
+def test_tree_kernel_matches_plain(factors, group, dtype, fmt):
+    """K8: a draft tree's ancestor mask over a paged pool (unquantized
+    or int8/fp8 with scales) in both kernel bodies (gq <= 8 takes the
+    small-bundle body, larger bundles the tiled one) against the plain
+    version; row 0's bundle ends at the table's end, row 2 is a dead
+    slot."""
+    require_cuda()
+    rng = np.random.RandomState(300 + sum(factors) + group)
+    mask = _tree_mask(factors, 3)
+    w = mask.shape[1]
+    B, KV, d, bs, nb, N = 3, 2, 128, 16, 16, 50
+    q = _cuda(rng, (B, w, KV * group, d), dtype)
+    if fmt == "bf16":
+        kp = _cuda(rng, (N, bs, KV, d), dtype)
+        vp = _cuda(rng, (N, bs, KV, d), dtype)
+        scales = {}
+    else:
+        kp, ks = _quantized(_cuda(rng, (N, bs, KV, d), torch.float32), fmt)
+        vp, vs = _quantized(_cuda(rng, (N, bs, KV, d), torch.float32), fmt)
+        scales = dict(k_scale=ks, v_scale=vs)
+    bt_np = (rng.permutation(N - 1)[:B * nb] + 1).reshape(B, nb)
+    bt_np[2] = 0
+    bt = torch.tensor(bt_np, dtype=torch.int32, device="cuda")
+    pos = torch.tensor([nb * bs - w, 19, 0], dtype=torch.int32,
+                       device="cuda")
+    tda.reset_counters()
+    got = tda.paged_flash_decode_attention(q, kp, vp, bt, pos,
+                                           ancestor_mask=mask, **scales)
+    torch.cuda.synchronize()
+    name = "paged_flash_decode_attention_tree" + ("_quant" if scales else "")
+    assert tda.LAUNCHES[name] == 1
+    want = tda.paged_flash_decode_attention_ref(q, kp, vp, bt, pos,
+                                                ancestor_mask=mask, **scales)
+    torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("q_len,group", [(5, 1), (8, 1), (29, 1), (3, 4)])
+def test_causal_tree_mask_is_bitwise_default(q_len, group, dtype, fmt):
+    """K8 with a causal (lower-triangular) mask gives K6/K7's maskless
+    output bit for bit, in both bodies."""
+    require_cuda()
+    rng = np.random.RandomState(400 + q_len + group)
+    B, KV, d, bs, nb, N = 3, 2, 128, 16, 16, 50
+    q = _cuda(rng, (B, q_len, KV * group, d), dtype)
+    if fmt == "bf16":
+        kp = _cuda(rng, (N, bs, KV, d), dtype)
+        vp = _cuda(rng, (N, bs, KV, d), dtype)
+        scales = {}
+    else:
+        kp, ks = _quantized(_cuda(rng, (N, bs, KV, d), torch.float32), fmt)
+        vp, vs = _quantized(_cuda(rng, (N, bs, KV, d), torch.float32), fmt)
+        scales = dict(k_scale=ks, v_scale=vs)
+    bt = torch.tensor((rng.permutation(N - 1)[:B * nb] + 1).reshape(B, nb),
+                      dtype=torch.int32, device="cuda")
+    pos = torch.tensor([nb * bs - q_len, 100, 0], dtype=torch.int32,
+                       device="cuda")
+    causal = torch.ones(q_len, q_len, dtype=torch.bool,
+                        device="cuda").tril()[None].expand(B, -1, -1)
+    got = tda.paged_flash_decode_attention(q, kp, vp, bt, pos,
+                                           ancestor_mask=causal, **scales)
+    want = tda.paged_flash_decode_attention(q, kp, vp, bt, pos, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
