@@ -9,7 +9,37 @@ Phases, each printing JSON lines (and failing loudly on any check):
    torch and CUDA versions.
 2. ``build``: nvcc builds every CUDA source of the port from this
    checkout (all sources in parallel).
-3. ``kernel``: every kernel of the serving and training paths against
+3. ResNet-50 (K10, K11):
+   ``conv_kernel``: K10 (``fused_conv_bn_eval``, with and without its
+   ReLU) and K11 (``conv_stats``, and ``conv_stats_pre`` with the
+   previous BatchNorm's normalize+ReLU as its prologue) at ResNet-50's
+   16 distinct batch-256 conv shapes in bf16, each variant the path
+   runs there, against their plain versions (outputs atol 2e-2 plus one
+   bf16 rounding step of the value, 2^-7 of it; batch statistics 1e-4),
+   with the kernel's time, the plain version's, cuDNN's conv of the same
+   x and w (the yardstick) and the bound; then the JAX package's test
+   shapes, odd channel counts, a ragged channel step and a 1x1 image
+   under a 3x3 kernel, bf16 and fp32 (atol 1e-4). ``resnet_infer``:
+   ``resnet50(num_classes=1000)`` from the port's seeded initializers,
+   bf16, channels-last, space-to-depth stem, eval, 10 timed batches of
+   256 x 3 x 224 x 224 under no_grad: images/s, peak memory; asserts 46
+   K10 launches a forward (29 with the ReLU, 17 without), no fallback,
+   and cuDNN for the 7 convs that do not qualify only. ``resnet_train``:
+   bench.py's ResNet-50 train step (bf16, batch 256, Momentum(0.1, 0.9,
+   weight_decay=1e-4), cross entropy, one repeated seeded batch), 3
+   warm-up and 10 timed steps: ms per step, images/s, peak memory, an
+   MFU estimate (3 x the forward's conv and fc operations); asserts
+   finite losses, a first loss within 0.5 of ln(1000), a falling loss
+   and 46 K11 launches a step (20 plain, 26 with the prologue).
+   ``profile`` lines of one eval batch and one train step.
+   ``resnet_parity``: fp32, 8 x 3 x 128 x 128, the same weights on the
+   card and the CPU (plain versions): eval logits within 1e-4 of the
+   largest; one forward and backward with losses to rtol 1e-4 and each
+   parameter's gradient, against an fp64 CPU run and relative to its
+   own norm, no further off than twice the CPU fp32 run's worst (and
+   median) leaf; three Momentum steps at lr 1e-6 with every loss to
+   rtol 1e-4 and every weight within lr.
+4. ``kernel``: every kernel of the serving and training paths against
    its plain PyTorch version on the card, bf16 (atol 2e-2) and fp32
    (atol 1e-4); with the kernel's time (CUDA events over many launches
    after a warm-up), the plain version's time, the time of
@@ -33,7 +63,7 @@ Phases, each printing JSON lines (and failing loudly on any check):
    the maskless K6 / K7), the [2, 2] tree (7 nodes) and the [4, 2, 2]
    tree (29); SDPA with the boolean mask over the gathered pool is the
    yardstick.
-4. ``serve``: Llama-2-7B at full width and depth, bf16, seeded random
+5. ``serve``: Llama-2-7B at full width and depth, bf16, seeded random
    N(0, 0.02) weights made on the card, served by the paged engine
    (8 slots, max_len 2048, 16-token blocks, 256-token prefill chunks):
    12 greedy requests, prompts of 48 to 1500 tokens, four sharing a
@@ -60,7 +90,7 @@ Phases, each printing JSON lines (and failing loudly on any check):
    engine's, rounds, drafted and accepted tokens, the accept histogram,
    tokens equal to the plain engine's and preemptions. A ``profile`` of
    a [4, 2, 2] round beside the plain decode step.
-5. ``serve_quant``: the same seeded Llama-2-7B converted by
+6. ``serve_quant``: the same seeded Llama-2-7B converted by
    ``convert_for_serving`` to int8 weight-only linears and served with
    int8 KV blocks over the same 12 requests. Checks: every request
    completes; K7 launches exactly layers x (decode steps + prefill
@@ -85,7 +115,7 @@ Phases, each printing JSON lines (and failing loudly on any check):
    equal its plain tokens and the CPU's, drafted/accepted counts equal
    on both; a coupled pair (layer 1 zeroed to an identity, the draft
    its first layer) accepts every draft.
-6. ``train``: the JAX package's bench.py primary point (134M Llama,
+7. ``train``: the JAX package's bench.py primary point (134M Llama,
    hidden 768, 12 layers of 12 heads, vocab 32000, flash attention) at
    full width and depth in bf16 with fp32 rope tables, seeded N(0, 0.02)
    weights, trained by ``ShardedTrainStep`` with AdamW(1e-4) on one
@@ -98,9 +128,10 @@ Phases, each printing JSON lines (and failing loudly on any check):
    seq 256 in fp32, three steps on the card and three on the CPU (plain
    versions) from the same weights: losses agree to rtol 1e-4, every
    weight within lr and their mean difference within 1e-3 * lr.
-7. ``kernels``: one summary object per kernel (K1-K9, K8 and its
-   quantized variant separately); then the card's nvidia-smi line; the last line is
-   ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+8. ``kernels``: one summary object per kernel (K1-K11; K8 and its
+   quantized variant, K10 with and without its ReLU, K11 with and
+   without its prologue separately); then the card's nvidia-smi line;
+   the last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Exits non-zero, printing no result, without a GPU or outside a checkout
 of the repository.
@@ -504,10 +535,14 @@ def device_window(fn, n):
            and e.self_device_time_total > 0]
     busy = sum(t for _, t in dev)
     top = sorted(dev, key=lambda kv: -kv[1])[:10]
-    kinds = {"port_kernels": 0.0, "cublas": 0.0, "other": 0.0}
+    kinds = {"port_kernels": 0.0, "cublas": 0.0, "cudnn": 0.0, "other": 0.0}
     for k, t in dev:
         kind = "port_kernels" if k.startswith("void flash_") or \
-            "flash_decode" in k or "qmm_" in k else "cublas" if k.startswith(
+            "flash_decode" in k or "qmm_" in k or "conv_mma" in k or \
+            "conv_simt" in k else "cudnn" if any(
+                s in k.lower() for s in ("cudnn", "xmma", "fprop", "dgrad",
+                                         "wgrad", "convolve")) \
+            else "cublas" if k.startswith(
                 ("nvjet", "sm90_", "cutlass")) or "gemm" in k.lower() \
             else "other"
         kinds[kind] += t
@@ -1745,6 +1780,547 @@ def quant_parity_phase(kind):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# ResNet-50: K10 (inference) and K11 (the train step)
+# ---------------------------------------------------------------------------
+
+CONV_META = {
+    "fused_conv_bn_eval": (
+        "K10", "paddle_tpu/pallas_kernels/fused_conv.py:199 "
+               "(_pallas_epilogue, _epilogue_kernel :158)"),
+    "fused_conv_bn_eval_relu": (
+        "K10", "paddle_tpu/pallas_kernels/fused_conv.py:199 "
+               "(_pallas_epilogue with relu, _epilogue_kernel :158)"),
+    "conv_stats": (
+        "K11", "paddle_tpu/pallas_kernels/fused_conv.py:255 "
+               "(_pallas_stats, _stats_kernel :168)"),
+    "conv_stats_pre": (
+        "K11", "paddle_tpu/pallas_kernels/fused_conv.py:255 "
+               "(_pallas_stats with the pre prologue, _stats_kernel :168, "
+               "_conv_acc :108-126)"),
+}
+RESNET_BATCH, RESNET_RES = 256, 224
+RESNET_LR, RESNET_MOMENTUM, RESNET_WD = 0.1, 0.9, 1e-4
+RESNET_PARITY_BATCH, RESNET_PARITY_RES, RESNET_PARITY_LR = 8, 128, 1e-6
+RESNET_WARMUP, RESNET_STEPS, RESNET_INFER_BATCHES = 3, 10, 10
+# ResNet-50's 46 qualifying conv units at 224 x 224, as 16 distinct
+# (H = W, C, K, kernel) with the units of each, whether the eval unit has
+# its ReLU in the epilogue, and the K11 variants the train step launches
+# at that shape (plain conv_stats: every conv1, layer1's downsample, the
+# conv3 after a stride-2 conv2; conv_stats_pre: the stride-1 conv2s and
+# the conv3s after them)
+RESNET50_CONVS = [
+    (56, 64, 64, 1, 1, True, {"conv_stats": 1}),
+    (56, 256, 64, 1, 2, True, {"conv_stats": 2}),
+    (56, 64, 64, 3, 3, True, {"conv_stats_pre": 3}),
+    (56, 64, 256, 1, 4, False, {"conv_stats": 1, "conv_stats_pre": 3}),
+    (56, 256, 128, 1, 1, True, {"conv_stats": 1}),
+    (28, 128, 512, 1, 4, False, {"conv_stats": 1, "conv_stats_pre": 3}),
+    (28, 512, 128, 1, 3, True, {"conv_stats": 3}),
+    (28, 128, 128, 3, 3, True, {"conv_stats_pre": 3}),
+    (28, 512, 256, 1, 1, True, {"conv_stats": 1}),
+    (14, 256, 1024, 1, 6, False, {"conv_stats": 1, "conv_stats_pre": 5}),
+    (14, 1024, 256, 1, 5, True, {"conv_stats": 5}),
+    (14, 256, 256, 3, 5, True, {"conv_stats_pre": 5}),
+    (14, 1024, 512, 1, 1, True, {"conv_stats": 1}),
+    (7, 512, 2048, 1, 3, False, {"conv_stats": 1, "conv_stats_pre": 2}),
+    (7, 2048, 512, 1, 2, True, {"conv_stats": 2}),
+    (7, 512, 512, 3, 2, True, {"conv_stats_pre": 2}),
+]
+# per forward (eval) and per step (train), from the table above
+K10_PER_FORWARD = {
+    "fused_conv_bn_eval_relu": sum(u for *_, u, r, _t in RESNET50_CONVS if r),
+    "fused_conv_bn_eval": sum(u for *_, u, r, _t in RESNET50_CONVS if not r)}
+K11_PER_STEP = {v: sum(t.get(v, 0) for *_, t in RESNET50_CONVS)
+                for v in ("conv_stats", "conv_stats_pre")}
+# small and odd shapes (case, N, H, W, C, K, kernel, dtype): the JAX
+# package's tests/test_fused_conv.py shapes, odd channel counts (the
+# plain-FMA body in bf16), a partial 32-channel step with a ragged K, and
+# a 1x1 image under a 3x3 kernel (where the TPU kernel cannot slice)
+CONV_EXTRA = [
+    ("jax_test_3x3", 2, 8, 8, 16, 32, 3),
+    ("jax_test_odd_n", 3, 6, 5, 8, 8, 3),
+    ("jax_test_1x1", 2, 7, 7, 32, 16, 1),
+    ("jax_test_small", 1, 4, 4, 8, 8, 1),
+    ("odd_c", 2, 4, 4, 6, 8, 3),
+    ("ragged", 4, 9, 7, 24, 40, 3),
+    ("odd_k", 3, 5, 5, 16, 13, 1),
+    ("image_1x1", 8, 1, 1, 64, 64, 3),
+]
+# bf16 outputs: atol plus one rounding step of the stored value (2^-7 of
+# it): kernel and plain version round the same f32 sum, summed in another
+# order, so a value near a rounding boundary may land one step apart
+CONV_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+STATS_TOL = 1e-4    # batch mean and variance: atol and rtol (f32 sums)
+
+
+def conv_bound(M, C, K, ks, isz, dname, extra_bytes):
+    """Least time for one fused conv: x, w and the output moved once (plus
+    the small per-channel vectors), or 2*M*K*C*taps operations at the
+    dtype's peak, whichever is larger."""
+    nbytes = (M * C + K * C * ks * ks + M * K) * isz + extra_bytes
+    t_bytes = nbytes / PEAKS["bw"] * 1e3
+    t_ops = 2 * M * K * C * ks * ks / PEAKS[dname] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _close(got, want, dname):
+    """(max |got - want|, every element within atol + rtol * |want|)."""
+    d = (got.float() - want.float()).abs()
+    lim = ATOL[dname] + CONV_RTOL[dname] * want.float().abs()
+    return d.max().item(), bool((d <= lim).all())
+
+
+def conv_row(variant, case, n, h, w, c, k, ks, dtype, g, units=None):
+    """One kernel variant against its plain version on seeded inputs,
+    timed beside the plain version and the cuDNN conv of the same x and w
+    (the library yardstick); ``units``: the row's launches a pass on the
+    ResNet-50 path."""
+    import math
+
+    import torch
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.kernels import fused_conv as fc
+
+    dev = torch.device(DEV)
+    dname = str(dtype).split(".")[-1]
+    isz = torch.empty((), dtype=dtype).element_size()
+    x = torch.randn(n, h, w, c, device=dev, generator=g).to(dtype)
+    bound_w = math.sqrt(6.0 / (c * ks * ks))   # KaimingUniform
+    wt = ((torch.rand(k, c, ks, ks, device=dev, generator=g) * 2 - 1)
+          * bound_w).to(dtype)
+    extra = 0
+    if variant.startswith("fused_conv_bn_eval"):
+        relu = variant.endswith("relu")
+        scale = torch.rand(k, device=dev, generator=g) + 0.5
+        shift = torch.randn(k, device=dev, generator=g) * 0.1
+        run = lambda: fc.fused_conv_bn_eval(x, wt, scale, shift, relu)  # noqa
+        plain = lambda: (fc._eval_ref(x, wt, scale, shift, relu),)  # noqa
+        extra = 2 * k * 4
+    elif variant == "conv_stats":
+        run = lambda: fc.conv_stats(x, wt)  # noqa
+        plain = lambda: fc._conv_stats_ref(x, wt)  # noqa
+        extra = 2 * k * 4
+    else:
+        m_p = torch.randn(c, device=dev, generator=g) * 0.1
+        v_p = torch.rand(c, device=dev, generator=g) * 1.5 + 0.5
+        gp = (torch.rand(c, device=dev, generator=g) + 0.5).to(dtype)
+        bp = (torch.randn(c, device=dev, generator=g) * 0.1).to(dtype)
+        run = lambda: fc.conv_stats_pre(x, m_p, v_p, gp, bp, wt)  # noqa
+        plain = lambda: fc._conv_stats_pre_ref(  # noqa
+            x, m_p, v_p, gp, bp, wt, True, 1e-5)
+        extra = 2 * k * 4 + 2 * c * (4 + isz)
+    lib = lambda: TF.conv2d(x.permute(0, 3, 1, 2), wt,  # noqa
+                            padding=(ks - 1) // 2)
+    with torch.no_grad():
+        got = run()
+        got = got if isinstance(got, tuple) else (got,)
+        want = plain()
+        torch.cuda.synchronize()
+        err, ok = _close(got[0], want[0], dname)
+        stats_err = None
+        if len(got) == 3:
+            stats_err = max((a - b).abs().max().item()
+                            for a, b in zip(got[1:], want[1:]))
+            ok = ok and all(bool(((a - b).abs() <= STATS_TOL * (1 + b.abs()))
+                                 .all()) for a, b in zip(got[1:], want[1:]))
+        M = n * h * w
+        bound, bound_by = conv_bound(M, c, k, ks, isz, dname, extra)
+        row = {"phase": "conv_kernel", "name": variant, "case": case,
+               "dtype": dname, "N": n, "H": h, "W": w, "C": c, "K": k,
+               "kernel": ks, "max_abs_err": err, "atol": ATOL[dname],
+               "rtol": CONV_RTOL[dname], "stats_max_abs_err": stats_err,
+               "ok": ok, "bound_ms": bound, "bound_by": bound_by,
+               "library": "cuDNN F.conv2d, channels_last",
+               "ms": cuda_ms(run, 20), "plain_ms": cuda_ms(plain, 3),
+               "library_ms": cuda_ms(lib, 20)}
+        if units is not None:
+            row["units"] = units
+    emit(row)
+    check(ok, f"{variant} disagrees with its plain version: "
+              f"{json.dumps(row)}")
+    return row
+
+
+def conv_kernel_phase():
+    """K10 (with and without its ReLU) and K11 (plain and with the
+    prologue) at ResNet-50's 16 batch-256 shapes in bf16, each variant the
+    path runs there; then the small, odd and 1x1-image cases in bf16 and
+    fp32. Returns the rows."""
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    check(K10_PER_FORWARD == {"fused_conv_bn_eval_relu": 29,
+                              "fused_conv_bn_eval": 17}
+          and K11_PER_STEP == {"conv_stats": 20, "conv_stats_pre": 26},
+          f"ResNet-50 table: {K10_PER_FORWARD} {K11_PER_STEP}")
+    rows = []
+    for h, c, k, ks, units, relu, train in RESNET50_CONVS:
+        case = f"resnet50 {h}x{h} {c}->{k} k{ks}"
+        k10 = "fused_conv_bn_eval_relu" if relu else "fused_conv_bn_eval"
+        for variant, count in ((k10, units),) + tuple(train.items()):
+            rows.append(conv_row(variant, case, RESNET_BATCH, h, h, c, k,
+                                 ks, torch.bfloat16, g, units=count))
+        torch.cuda.empty_cache()
+    for case, n, h, w, c, k, ks in CONV_EXTRA:
+        for dtype in (torch.bfloat16, torch.float32):
+            for variant in CONV_META:
+                rows.append(conv_row(variant, case, n, h, w, c, k, ks, dtype,
+                                     g))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def resnet50_model(dtype, device, seed):
+    """resnet50(num_classes=1000) from the port's initializers under
+    ``torch.manual_seed(seed)`` on the CPU (so the card and the CPU get
+    the same weights), moved to ``device``, cast, channels-last, with the
+    space-to-depth stem (bench.py's preparation)."""
+    import torch
+
+    from paddle_tpu_torch.nn import space_to_depth_stem, to_channels_last
+    from paddle_tpu_torch.vision.models import resnet50
+
+    torch.manual_seed(seed)
+    model = resnet50(num_classes=1000, device="cpu").to(device=device,
+                                                        dtype=dtype)
+    to_channels_last(model)
+    space_to_depth_stem(model)
+    return model
+
+
+def resnet50_flops(batch, res):
+    """Forward operations of ResNet-50 (2 per multiply-add): every conv at
+    its output size (the stem as the 7x7 it stands for) and the fc."""
+    total = 2 * (res // 2) ** 2 * 64 * 3 * 49           # stem
+    h, cin = res // 4, 64
+    for planes, blocks, stride in ((64, 3, 1), (128, 4, 2), (256, 6, 2),
+                                   (512, 3, 2)):
+        for b in range(blocks):
+            s = stride if b == 0 else 1
+            ho = h // s
+            total += 2 * h * h * cin * planes                 # conv1
+            total += 2 * ho * ho * planes * planes * 9        # conv2
+            total += 2 * ho * ho * planes * planes * 4        # conv3
+            if b == 0:
+                total += 2 * ho * ho * cin * planes * 4       # downsample
+            h, cin = ho, planes * 4
+    return batch * (total + 2 * 2048 * 1000)
+
+
+class _Conv2dCounter:
+    """Counts calls of the port's ``nn.functional.conv2d`` (the cuDNN
+    route every non-qualifying conv takes) while installed."""
+
+    def __init__(self):
+        from paddle_tpu_torch.nn import functional as PF
+
+        self.mod, self.orig, self.calls = PF, PF.conv2d, 0
+
+    def __enter__(self):
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.orig(*a, **kw)
+
+        self.mod.conv2d = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.conv2d = self.orig
+
+
+def resnet_batch(n, res, classes, dtype, seed, device):
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(n, 3, res, res).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, classes, (n,)).astype(np.int64))
+    return x.to(device=device, dtype=dtype), y.to(device)
+
+
+def resnet_infer_phase(kind):
+    """ResNet-50 inference, bf16, batch 256 at 224 x 224: warm-up, then
+    timed batches under no_grad; asserts 46 K10 launches per forward (29
+    with the ReLU, 17 without), no fallback, and cuDNN only for the 7
+    non-qualifying convs. Returns the launches of the timed batches."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.kernels import fused_conv as fc
+    from paddle_tpu_torch.nn import layers_conv_norm as lcn
+
+    model = resnet50_model(torch.bfloat16, DEV, SEED).eval()
+    x, _ = resnet_batch(RESNET_BATCH, RESNET_RES, 1000, torch.bfloat16,
+                        SEED, DEV)
+    with torch.no_grad():
+        for _ in range(2):
+            model(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fc.reset_counters()
+        lcn.reset_dispatch_counter()
+        n = RESNET_INFER_BATCHES
+        with _Conv2dCounter() as convs:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                logits = model(x)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = dict(fc.LAUNCHES)
+        dispatch = {"/".join(k): v for k, v in lcn.FUSED_CONV_DISPATCH.items()}
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(logits).all())
+        prof = device_window(lambda: model(x), 1)
+    row = {"phase": "resnet_infer", "model": "resnet50", "dtype": "bfloat16",
+           "batch": RESNET_BATCH, "resolution": RESNET_RES, "batches": n,
+           "ms_per_batch": secs / n * 1e3,
+           "images_per_s": RESNET_BATCH * n / secs,
+           "peak_memory_gib": peak / 2**30,
+           "logits_shape": list(logits.shape), "logits_finite": finite,
+           "kernel_launches": launches, "dispatch": dispatch,
+           "cudnn_convs_per_forward": convs.calls / n, "card": kind}
+    emit(row)
+    emit({"phase": "profile", "model": "resnet50", "dtype": "bfloat16",
+          "what": "one eval batch of 256", "eval_batch": prof, "card": kind})
+    check(finite and list(logits.shape) == [RESNET_BATCH, 1000],
+          f"bad logits: {row}")
+    want = {k: v * n for k, v in K10_PER_FORWARD.items()}
+    want.update(conv_stats=0, conv_stats_pre=0)
+    check(launches == want, f"K10 launches {launches}, expected {want}")
+    check(dispatch == {"hit/eval": 46 * n, "fallback/ineligible": 6 * n},
+          f"fused-conv dispatch {dispatch}")
+    check(convs.calls == 7 * n, f"{convs.calls / n} cuDNN convs a forward, "
+                                f"expected the 7 that do not qualify")
+    check(math.isfinite(row["images_per_s"]), "no time")
+    del model, x, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def resnet_train_phase(kind):
+    """bench.py's ResNet-50 train step: bf16 parameters and batch (256 x
+    224 x 224), Momentum(0.1, 0.9, wd 1e-4), cross entropy, one repeated
+    seeded batch; warm-up and timed steps, then a profiled step. Asserts
+    finite losses, a first loss within 0.5 of ln(1000), a falling loss and
+    46 K11 launches a step (20 plain, 26 with the prologue). Returns the
+    launches of the warm-up and timed steps."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.distributed import ShardedTrainStep
+    from paddle_tpu_torch.kernels import fused_conv as fc
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.nn import layers_conv_norm as lcn
+    from paddle_tpu_torch.optimizer import Momentum
+
+    model = resnet50_model(torch.bfloat16, DEV, SEED)
+    opt = Momentum(learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM,
+                   weight_decay=RESNET_WD)
+    step = ShardedTrainStep(
+        model, lambda lo, la: PF.cross_entropy(lo, la).mean(), opt)
+    x, y = resnet_batch(RESNET_BATCH, RESNET_RES, 1000, torch.bfloat16,
+                        SEED, DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_counters()
+    lcn.reset_dispatch_counter()
+    losses = [step.step(x, y).item() for _ in range(RESNET_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [step.step(x, y) for _ in range(RESNET_STEPS)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses += [t.item() for t in timed]
+    launches = dict(fc.LAUNCHES)
+    dispatch = {"/".join(k): v for k, v in lcn.FUSED_CONV_DISPATCH.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = RESNET_WARMUP + RESNET_STEPS
+    ips = RESNET_BATCH * RESNET_STEPS / secs
+    flops = 3 * resnet50_flops(RESNET_BATCH, RESNET_RES)
+    row = {"phase": "resnet_train", "model": "resnet50 (bench.py "
+           "_run_resnet50)", "dtype": "bfloat16", "batch": RESNET_BATCH,
+           "resolution": RESNET_RES, "optimizer": "Momentum(0.1, 0.9, "
+           "weight_decay=1e-4)", "warmup_steps": RESNET_WARMUP,
+           "timed_steps": RESNET_STEPS, "losses": losses,
+           "ms_per_step": secs / RESNET_STEPS * 1e3, "images_per_s": ips,
+           "peak_memory_gib": peak / 2**30,
+           "step_tflop": flops / 1e12,
+           "mfu_estimate": ips / RESNET_BATCH * flops / PEAKS["bfloat16"],
+           "mfu_note": "estimate: 3 x the forward's conv and fc operations "
+                       "against the 989 TFLOP/s bf16 data-sheet peak",
+           "kernel_launches": launches, "dispatch": dispatch, "card": kind}
+    emit(row)
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(abs(losses[0] - math.log(1000)) < 0.5,
+          f"first loss {losses[0]} not within 0.5 of ln(1000)")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    want = {k: v * n_steps for k, v in K11_PER_STEP.items()}
+    want.update(fused_conv_bn_eval=0, fused_conv_bn_eval_relu=0)
+    check(launches == want, f"K11 launches {launches}, expected {want}")
+    check(dispatch == {"hit/train": 46 * n_steps,
+                       "fallback/ineligible": 6 * n_steps},
+          f"fused-conv dispatch {dispatch}")
+    prof = device_window(lambda: step.step(x, y), 1)
+    emit({"phase": "profile", "model": "resnet50", "dtype": "bfloat16",
+          "what": "one train step (forward, loss, backward, Momentum)",
+          "train_step": prof, "card": kind})
+    del step, model, x, y
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _resnet_grads(model, x, y):
+    """(loss, {name: gradient}) of one train-mode forward and backward."""
+    import torch
+
+    from paddle_tpu_torch.nn import functional as PF
+
+    model.train()
+    loss = PF.cross_entropy(model(x), y)
+    names, params = zip(*model.named_parameters())
+    return loss.item(), dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def _leaf_errors(grads, oracle):
+    """Each parameter's gradient distance from the fp64 one, relative to
+    the fp64 gradient's own norm."""
+    return {k: (grads[k] - g).norm().item() / max(g.norm().item(), 1e-30)
+            for k, g in oracle.items()}
+
+
+def resnet_parity_phase(kind):
+    """ResNet-50 in fp32 at 8 x 3 x 128 x 128, the same weights on the
+    card (through K10/K11) and the CPU (plain versions).
+
+    - Eval logits within 1e-4 of the largest logit.
+    - One train-mode forward and backward: losses to rtol 1e-4; each
+      parameter's gradient against an fp64 CPU run (the unfused
+      composition), relative to its own norm, no further off on the card
+      than twice the CPU fp32 run's worst leaf, and the median leaf no
+      further than twice the CPU's median. fp32 gradients of a randomly
+      initialised ResNet-50 are themselves 1-3% of each leaf's norm off
+      fp64: ReLU and max-pool masks flip between two fp32 runs, and each
+      flipped position is one of the few hundred a BatchNorm averages;
+      two fp32 runs cannot be held closer than that.
+    - Three Momentum steps at lr 1e-6 (momentum 0.9, weight decay 1e-4):
+      every loss to rtol 1e-4 and every weight within lr. The loss falls
+      about 1.4% over the three steps; a larger lr amplifies the
+      gradients' fp32 noise past the bound even between two CPU runs."""
+    import math
+    import statistics
+
+    import torch
+
+    from paddle_tpu_torch.distributed import ShardedTrainStep
+    from paddle_tpu_torch.kernels import fused_conv as fc
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.optimizer import Momentum
+
+    n, res, lr = RESNET_PARITY_BATCH, RESNET_PARITY_RES, RESNET_PARITY_LR
+    x, y = resnet_batch(n, res, 1000, torch.float32, SEED + 2, "cpu")
+    models = {d: resnet50_model(torch.float32, d, SEED + 2).eval()
+              for d in (DEV, "cpu")}
+    fc.reset_counters()
+    with torch.no_grad():
+        logits = {d: m(x.to(d)).cpu() for d, m in models.items()}
+    eval_launches = dict(fc.LAUNCHES)
+    scale = max(1.0, logits["cpu"].abs().max().item())
+    l_err = (logits[DEV] - logits["cpu"]).abs().max().item()
+
+    fc.reset_counters()
+    grads, first = {}, {}
+    for d, m in models.items():
+        first[d], g = _resnet_grads(m, x.to(d), y.to(d))
+        grads[d] = {k: v.cpu().double() for k, v in g.items()}
+    grad_launches = dict(fc.LAUNCHES)
+    oracle = resnet50_model(torch.float64, "cpu", SEED + 2)
+    first["cpu_fp64"], g64 = _resnet_grads(oracle, x.double(), y)
+    del oracle
+    leaf = {d: _leaf_errors(grads[d], g64) for d in grads}
+    g_worst = {d: max((e, k) for k, e in leaf[d].items()) for d in leaf}
+    g_median = {d: statistics.median(leaf[d].values()) for d in leaf}
+    g_rel = abs(first[DEV] - first["cpu"]) / abs(first["cpu"])
+
+    losses, steps = {}, {}
+    fc.reset_counters()
+    for d, m in models.items():
+        steps[d] = ShardedTrainStep(
+            m, lambda lo, la: PF.cross_entropy(lo, la).mean(),
+            Momentum(learning_rate=lr, momentum=RESNET_MOMENTUM,
+                     weight_decay=RESNET_WD))
+        losses[d] = [steps[d].step(x.to(d), y.to(d)).item()
+                     for _ in range(3)]
+    train_launches = dict(fc.LAUNCHES)
+    w_err, worst = max(
+        ((steps[DEV].params[k].cpu() - p).abs().max().item(), k)
+        for k, p in steps["cpu"].params.items())
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[DEV],
+                                                   losses["cpu"]))
+    row = {"phase": "resnet_parity", "dtype": "float32",
+           "input": [n, 3, res, res], "logits_max_abs_err": l_err,
+           "logits_scale": scale, "logits_tol": 1e-4 * scale,
+           "grad_step_losses": first, "grad_step_loss_rel_err": g_rel,
+           "grad_leaf_rel_err_worst_vs_fp64": g_worst,
+           "grad_leaf_rel_err_median_vs_fp64": g_median,
+           "lr": lr, "losses": losses, "loss_max_rel_err": rel,
+           "loss_rtol": 1e-4, "weight_max_abs_err_after_3": w_err,
+           "weight_worst": worst, "weight_atol": lr,
+           "eval_launches_cuda": eval_launches,
+           "grad_launches_cuda": grad_launches,
+           "train_launches_cuda": train_launches, "card": kind}
+    emit(row)
+    check(l_err <= 1e-4 * scale, f"card and CPU logits differ: {l_err}")
+    check(g_rel <= 1e-4 and rel <= 1e-4,
+          f"card and CPU losses differ: {first}, {losses}")
+    check(g_worst[DEV][0] <= 2 * g_worst["cpu"][0]
+          and g_median[DEV] <= 2 * g_median["cpu"],
+          f"card gradients further from fp64 than the CPU's: {g_worst}, "
+          f"{g_median}")
+    check(all(math.isfinite(v) for v in losses[DEV]),
+          f"non-finite card losses {losses}")
+    check(w_err <= lr, f"card and CPU weights differ after 3 steps: "
+                       f"{w_err} ({worst})")
+    check(sum(eval_launches.values()) == 46
+          and sum(grad_launches.values()) == 46
+          and sum(train_launches.values()) == 3 * 46,
+          f"fp32 card run did not take the kernels: {eval_launches}, "
+          f"{grad_launches}, {train_launches}")
+    del models, steps
+    torch.cuda.empty_cache()
+
+
+def conv_summary(conv_rows, infer_launches, resnet_train_launches):
+    """One object per K10/K11 variant: its row at the ResNet-50 shape
+    where it has the most work (units x bound), and its ms, plain ms,
+    library ms and bound summed over the units of one forward (K10) or
+    one train step's forward (K11) as ``per_pass``."""
+    out = []
+    for name, (tag, replaces) in CONV_META.items():
+        mine = [r for r in conv_rows if r["name"] == name]
+        path = [r for r in mine if "units" in r]
+        main = max(path, key=lambda r: r["units"] * r["bound_ms"])
+        launches = (infer_launches if tag == "K10"
+                    else resnet_train_launches)[name]
+        out.append({"name": name, "route": "cuda",
+                    "source": "paddle_tpu_torch/kernels/csrc/fused_conv.cu",
+                    "replaces": replaces, "tpu_counterpart": tag,
+                    "launches": launches,
+                    "max_abs_err": max(r["max_abs_err"] for r in mine),
+                    "ms": main["ms"], "plain_ms": main["plain_ms"],
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"],
+                    "library_ms": main["library_ms"], "main_case": main["case"],
+                    "per_pass": {k: sum(r["units"] * r[k] for r in path)
+                                 for k in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms")},
+                    "ok": all(r["ok"] for r in mine)})
+    return out
+
+
 def summary(rows, serve_launches, gen_launches, flash_rows,
             train_launches, quant_rows, quant_launches, tree_rows,
             spec_launches):
@@ -1874,6 +2450,15 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": sorted(_build.SOURCES)})
 
+    # ResNet-50: K10 and K11 against their plain versions, inference
+    # (K10), the train step (K11) and the fp32 card-against-CPU check
+    conv_rows = conv_kernel_phase()
+    infer_launches = resnet_infer_phase(kind)
+    resnet_train_launches = resnet_train_phase(kind)
+    resnet_parity_phase(kind)
+    conv_kernels = conv_summary(conv_rows, infer_launches,
+                                resnet_train_launches)
+
     rng = np.random.RandomState(SEED)
     rows = kernel_phase(rng)
     quant_rows = quant_attention_phase(np.random.RandomState(SEED + 4)) \
@@ -1922,7 +2507,7 @@ def main(argv=None) -> int:
 
     emit({"kernels": summary(rows, serve_launches, gen_launches, flash_rows,
                              train_launches, quant_rows, quant_launches,
-                             tree_rows, spec_launches)})
+                             tree_rows, spec_launches) + conv_kernels})
     emit(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

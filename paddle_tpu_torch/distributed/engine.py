@@ -1,11 +1,17 @@
 """The training step (counterpart of ``paddle_tpu/distributed/engine.py``).
 
-``ShardedTrainStep`` owns the parameters between steps, as the JAX
-engine owns its sharded arrays: each ``step`` runs the model forward on
-them (``torch.func.functional_call``), the loss, the backward, an
-optional global-norm clip and the functional AdamW, and keeps the new
-parameters. The model is synced on demand (``sync_weights_to_model`` /
-``sync_weights_from_model``). This slice runs on one device: a mesh of
+``ShardedTrainStep`` owns the parameters and buffers between steps, as
+the JAX engine owns its sharded arrays: each ``step`` runs the model
+forward on them (``torch.func.functional_call``), the loss, the backward,
+an optional global-norm clip and the functional optimizer (AdamW or
+momentum), and keeps the new parameters. The model is synced on demand
+(``sync_weights_to_model`` / ``sync_weights_from_model``).
+
+Buffers stay as the step found them, as in the JAX engine: its step
+function returns the loss, parameters and optimizer state only, so the
+running statistics a train-mode BatchNorm updates inside the traced
+forward are dropped. Here each forward runs on copies of the buffers,
+whose updates are dropped alike. This slice runs on one device: a mesh of
 more than one device, a data-parallel axis, remat and optimizer-state
 sharding raise ``NotImplementedError`` until the distributed slice.
 """
@@ -57,9 +63,7 @@ class ShardedTrainStep:
         clip = getattr(optimizer, "_grad_clip", None)
         self.grad_clip_norm = grad_clip_norm if grad_clip_norm is not None \
             else getattr(clip, "clip_norm", None)
-        self.params = {}
         self.sync_weights_from_model()
-        self.buffers = dict(model.named_buffers())
         self.opt_state = self._fopt.init(self.params)
 
     def _device(self):
@@ -74,8 +78,8 @@ class ShardedTrainStep:
         inputs, labels = self._to_device(inputs), self._to_device(labels)
         names = list(self.params)
         leaves = [self.params[k].requires_grad_(True) for k in names]
-        outs = functional_call(self.model, {**self.params, **self.buffers},
-                               inputs)
+        bufs = {k: b.clone() for k, b in self.buffers.items()}
+        outs = functional_call(self.model, {**self.params, **bufs}, inputs)
         outs = outs if isinstance(outs, (list, tuple)) else (outs,)
         loss = self.loss_fn(*outs, *labels)
         grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
@@ -91,14 +95,18 @@ class ShardedTrainStep:
         return loss.detach()
 
     def sync_weights_to_model(self) -> None:
-        """Copy the engine's parameters into the model's (for eval or
-        export)."""
+        """Copy the engine's parameters and buffers into the model's (for
+        eval or export)."""
         with torch.no_grad():
             for k, p in self.model.named_parameters():
                 p.copy_(self.params[k])
+            for k, b in self.model.named_buffers():
+                b.copy_(self.buffers[k])
 
     def sync_weights_from_model(self) -> None:
-        """Take the model's current weights as the engine's parameters
+        """Take the model's current weights and buffers as the engine's
         (after loading a state dict); the optimizer moments are kept."""
         self.params = {k: p.detach().clone()
                        for k, p in self.model.named_parameters()}
+        self.buffers = {k: b.detach().clone()
+                        for k, b in self.model.named_buffers()}

@@ -10,7 +10,12 @@ from .decode_attention import (MAX_DECODE_Q_LEN, MAX_PAGED_Q_LEN,
                                decode_dispatch, flash_decode_attention,
                                paged_decode_dispatch,
                                paged_flash_decode_attention)
+from .fused_conv import (bn_apply, conv_qualifies, conv_stats,
+                         conv_stats_pre, fused_conv_bn_eval,
+                         fused_conv_bn_train)
 
 __all__ = ["flash_decode_attention", "paged_flash_decode_attention",
            "decode_dispatch", "paged_decode_dispatch", "MAX_DECODE_Q_LEN",
-           "MAX_PAGED_Q_LEN"]
+           "MAX_PAGED_Q_LEN", "conv_qualifies", "fused_conv_bn_eval",
+           "conv_stats", "conv_stats_pre", "bn_apply",
+           "fused_conv_bn_train"]

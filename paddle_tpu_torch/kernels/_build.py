@@ -39,6 +39,12 @@ SOURCES = {
     "quant_matmul.cu": {
         "paddle_quant_matmul": [_P] * 4 + [_I] * 5 + [_P],
     },
+    # x w scale shift ps pb out part1 part2, then (bf16, stats, relu, pre,
+    # relu_in, N, H, W, C, K, ksize, tiles)
+    "fused_conv.cu": {
+        "paddle_fused_conv_tile_rows": [_I, _I],
+        "paddle_fused_conv": [_P] * 9 + [_I] * 12 + [_P],
+    },
     # pointers, then an int64 stride array, then (bf16, B, S, H, D, causal)
     "flash_attention.cu": {
         "paddle_flash_fwd": [_P] * 7 + [_I] * 6 + [_F, _P],

@@ -1,11 +1,15 @@
-"""Carry weights from the JAX package's Llama into the port.
+"""Carry weights from the JAX package's models (Llama, ResNet) into the
+port.
 
 The JAX model's ``{k: np.asarray(v._data) for k, v in
-model.state_dict().items()}`` uses the same key names as the port. Its
-``nn.Linear`` stores ``[in, out]``; torch stores ``[out, in]``, so every
-``*_proj.weight`` and ``lm_head.weight`` is transposed on the way in
-(the reverse of the JAX package's ``convert_hf_llama_state_dict``).
-``export_paddle_tpu_state`` goes the other way.
+model.state_dict().items()}`` uses the same key names as the port,
+buffers (BatchNorm's ``_mean``/``_variance``) included. Its ``nn.Linear``
+stores ``[in, out]``; torch stores ``[out, in]``, so the weight of every
+``torch.nn.Linear`` of the port's model (a Llama's ``*_proj`` and
+``lm_head``, a ResNet's ``fc``) is transposed on the way in (the reverse
+of the JAX package's ``convert_hf_llama_state_dict``); conv weights are
+OIHW in both and cross unchanged. ``export_paddle_tpu_state`` goes the
+other way.
 
 A model converted for weight-only serving carries ``*.qweight`` [out,
 in] (int8 or fp8 e4m3) and ``*.scale`` [out] f32 in both packages: they
@@ -21,8 +25,9 @@ import torch
 __all__ = ["load_paddle_tpu_state", "export_paddle_tpu_state"]
 
 
-def _is_linear_weight(name: str) -> bool:
-    return name.endswith("_proj.weight") or name == "lm_head.weight"
+def _linear_weights(model: torch.nn.Module) -> set:
+    return {f"{name}.weight" for name, m in model.named_modules()
+            if isinstance(m, torch.nn.Linear)}
 
 
 def load_paddle_tpu_state(model: torch.nn.Module, state: dict):
@@ -30,6 +35,7 @@ def load_paddle_tpu_state(model: torch.nn.Module, state: dict):
     Raises ``ValueError`` on a missing or leftover key or on a shape
     that does not match; returns the model."""
     own = model.state_dict()
+    linear = _linear_weights(model)
     missing = sorted(set(own) - set(state))
     leftover = sorted(set(state) - set(own))
     if missing or leftover:
@@ -51,7 +57,7 @@ def load_paddle_tpu_state(model: torch.nn.Module, state: dict):
                 continue
             if arr.dtype.kind not in "fiub":   # e.g. ml_dtypes bfloat16
                 arr = arr.astype(np.float32)
-            if _is_linear_weight(name) and arr.ndim == 2:
+            if name in linear and arr.ndim == 2:
                 arr = arr.T
             if tuple(arr.shape) != tuple(dst.shape):
                 raise ValueError(f"{name}: shape {tuple(arr.shape)} does not "
@@ -65,12 +71,13 @@ def export_paddle_tpu_state(model: torch.nn.Module) -> dict:
     numpy array, linear weights transposed back to ``[in, out]``. bf16
     tensors come out as float32 (exact); numpy has no bf16."""
     out = {}
+    linear = _linear_weights(model)
     for name, t in model.state_dict().items():
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()
         arr = t.numpy()
-        if _is_linear_weight(name) and arr.ndim == 2:
+        if name in linear and arr.ndim == 2:
             arr = arr.T
         out[name] = np.ascontiguousarray(arr)
     return out

@@ -16,7 +16,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-__all__ = ["FunctionalOptimizer", "adamw", "clip_by_global_norm",
+__all__ = ["FunctionalOptimizer", "adamw", "momentum", "clip_by_global_norm",
            "from_eager"]
 
 
@@ -89,6 +89,42 @@ def adamw(beta1: float = 0.9, beta2: float = 0.999, epsilon: float = 1e-8,
     return FunctionalOptimizer(init, update)
 
 
+def momentum(mu: float = 0.9, weight_decay: float = 0.0,
+             use_nesterov: bool = False) -> FunctionalOptimizer:
+    """SGD with momentum, fp32 velocity. Per parameter: ``g32 = g +
+    wd * p`` (L2 decay on the gradient, in fp32); ``v = mu * v + g32``;
+    ``p - lr * (g32 + mu * v if nesterov else v)`` in fp32, cast back to
+    the parameter's dtype."""
+
+    def init(params):
+        return {"velocity": {k: torch.zeros(p.shape, dtype=torch.float32,
+                                            device=p.device)
+                             for k, p in params.items()}}
+
+    def update(grads, state, params, lr):
+        lr32 = _f32(lr)
+        names = [k for k in params if grads.get(k) is not None]
+        new_p, new_v = dict(params), dict(state["velocity"])
+        if not names:
+            return new_p, {"velocity": new_v}
+        g32 = [grads[k].float() for k in names]
+        p32 = [params[k].float() for k in names]
+        if weight_decay:
+            g32 = torch._foreach_add(g32, torch._foreach_mul(
+                p32, float(weight_decay)))
+        v = torch._foreach_add(torch._foreach_mul(
+            [state["velocity"][k] for k in names], mu), g32)
+        step = torch._foreach_add(g32, torch._foreach_mul(v, mu)) \
+            if use_nesterov else v
+        out = torch._foreach_sub(p32, torch._foreach_mul(step, lr32))
+        for k, o, vk in zip(names, out, v):
+            new_p[k] = o.to(params[k].dtype)
+            new_v[k] = vk
+        return new_p, {"velocity": new_v}
+
+    return FunctionalOptimizer(init, update)
+
+
 def clip_by_global_norm(grads, clip_norm: float):
     """Scale every gradient by ``clip_norm / max(global_norm, clip_norm)``
     (the norm in fp32, summed in sorted-name order as the JAX package's
@@ -103,12 +139,15 @@ def clip_by_global_norm(grads, clip_norm: float):
 
 
 def from_eager(opt) -> FunctionalOptimizer:
-    """The functional twin of an optimizer object (``AdamW``)."""
-    from .optimizer import AdamW
+    """The functional twin of an optimizer object (``AdamW``,
+    ``Momentum``)."""
+    from .optimizer import AdamW, Momentum
 
     if isinstance(opt, AdamW):
         return adamw(opt._beta1, opt._beta2, opt._epsilon, opt._wd,
                      decay_mask_fn=opt._apply_decay_param_fun)
+    if isinstance(opt, Momentum):
+        return momentum(opt._momentum, opt._weight_decay, opt._use_nesterov)
     raise NotImplementedError(
-        f"no functional twin for {type(opt).__name__}: the port has AdamW; "
-        "the other optimizers come with a later slice")
+        f"no functional twin for {type(opt).__name__}: the port has AdamW "
+        "and Momentum; the other optimizers come with a later slice")

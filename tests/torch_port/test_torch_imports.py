@@ -51,7 +51,12 @@ def test_importing_the_port_leaves_jax_out():
             "paddle_tpu_torch.quantization.intx, "
             "paddle_tpu_torch.quantization.observers, "
             "paddle_tpu_torch.quantization.ptq_serving, "
-            "paddle_tpu_torch.optimizer, paddle_tpu_torch.distributed; "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.distributed, "
+            "paddle_tpu_torch.kernels.fused_conv, "
+            "paddle_tpu_torch.nn.functional, "
+            "paddle_tpu_torch.nn.layers_conv_norm, "
+            "paddle_tpu_torch.nn.layout, paddle_tpu_torch.vision, "
+            "paddle_tpu_torch.vision.models.resnet; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; "
             "assert not bad, bad")
@@ -94,6 +99,36 @@ def test_quantized_entry_points_default_to_cuda(monkeypatch):
         ServingEngine(model, max_slots=1, max_len=64, kv_format="int8")
     caches = make_kv_caches(model.config, 1, 8, torch.float32, "fp8")
     assert caches[0]["k"].device.type == "cpu"
+
+
+def test_resnet_entry_points_default_to_cuda(monkeypatch):
+    """A ResNet resolves ``device=None`` to CUDA and raises without it;
+    built on the CPU on request, its fused units run the plain versions
+    (no launch) and its train step stays on the CPU."""
+    from paddle_tpu_torch.distributed import ShardedTrainStep
+    from paddle_tpu_torch.kernels import fused_conv
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn import to_channels_last
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18, resnet50
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for ctor in (resnet18, resnet50):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ctor(num_classes=10)
+    model = to_channels_last(resnet18(num_classes=10, device="cpu"))
+    assert all(p.device.type == "cpu" for p in model.parameters())
+    # casting the model casts the BatchNorm buffers too, as the JAX
+    # package's Layer.to does
+    assert {b.dtype for b in model.to(torch.bfloat16).buffers()} \
+        == {torch.bfloat16}
+    model.float()
+    fused_conv.reset_counters()
+    step = ShardedTrainStep(model, lambda lo, la: F.cross_entropy(lo, la),
+                            Momentum(learning_rate=0.01))
+    loss = step.step(torch.randn(2, 3, 32, 32), torch.tensor([1, 2]))
+    assert loss.device.type == "cpu"
+    assert sum(fused_conv.LAUNCHES.values()) == 0
 
 
 def _run_smoke(cwd):

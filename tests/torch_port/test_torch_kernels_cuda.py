@@ -1,6 +1,6 @@
-"""The CUDA kernels (flash decode K4-K8, flash attention K1-K3 and the
-quantized matmul K9) against their plain PyTorch versions,
-on a GPU. Skipped where CUDA is absent; on a GPU machine (which has no
+"""The CUDA kernels (flash decode K4-K8, flash attention K1-K3, the
+quantized matmul K9 and the fused convs K10/K11) against their plain
+PyTorch versions, on a GPU. Skipped where CUDA is absent; on a GPU machine (which has no
 jax) run this file alone:
 
     python -m pytest --noconftest tests/torch_port/test_torch_kernels_cuda.py
@@ -300,3 +300,91 @@ def test_causal_tree_mask_is_bitwise_default(q_len, group, dtype, fmt):
     want = tda.paged_flash_decode_attention(q, kp, vp, bt, pos, **scales)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+CONV_SHAPES = [((2, 8, 8, 16), 32, 3), ((3, 6, 5, 8), 8, 3),
+               ((2, 7, 7, 32), 16, 1), ((2, 4, 4, 6), 8, 3),
+               ((8, 1, 1, 64), 64, 3), ((4, 14, 14, 64), 40, 3),
+               ((2, 9, 9, 128), 13, 1)]
+CONV_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,k,kh", CONV_SHAPES)
+@pytest.mark.parametrize("variant", ["eval", "eval_relu", "stats", "pre"])
+def test_fused_conv_kernels_match_plain(variant, shape, k, kh, dtype,
+                                        monkeypatch):
+    """K10 (with and without its ReLU) and K11 (with and without its
+    prologue) on both bodies (tensor cores for bf16 with C % 8 == 0,
+    plain FMA otherwise), odd C and K, a 1x1 image under a 3x3 kernel.
+    bf16 outputs: atol plus one rounding step of the stored value (the
+    same f32 sum, summed in another order, may round one step apart);
+    the batch statistics (f32) to 1e-4."""
+    from paddle_tpu_torch.kernels import fused_conv as tfc
+
+    require_cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    rng = np.random.RandomState(sum(shape) + k + kh)
+    c = shape[-1]
+    x = _cuda(rng, shape, dtype)
+    w = (_cuda(rng, (k, c, kh, kh), torch.float32)
+         * (2.0 / (c * kh * kh)) ** 0.5).to(dtype)
+    tfc.reset_counters()
+    if variant.startswith("eval"):
+        relu = variant == "eval_relu"
+        scale = _cuda(rng, (k,), torch.float32).abs() + 0.5
+        shift = _cuda(rng, (k,), torch.float32) * 0.1
+        got = (tfc.fused_conv_bn_eval(x, w, scale, shift, relu),)
+        want = (tfc._eval_ref(x, w, scale, shift, relu),)
+        name = "fused_conv_bn_eval_relu" if relu else "fused_conv_bn_eval"
+    elif variant == "stats":
+        got, want = tfc.conv_stats(x, w), tfc._conv_stats_ref(x, w)
+        name = "conv_stats"
+    else:
+        m_p = _cuda(rng, (c,), torch.float32) * 0.1
+        v_p = _cuda(rng, (c,), torch.float32).abs() + 0.5
+        gp = (_cuda(rng, (c,), torch.float32).abs() + 0.5).to(dtype)
+        bp = (_cuda(rng, (c,), torch.float32) * 0.1).to(dtype)
+        got = tfc.conv_stats_pre(x, m_p, v_p, gp, bp, w, True, 1e-5)
+        want = tfc._conv_stats_pre_ref(x, m_p, v_p, gp, bp, w, True, 1e-5)
+        name = "conv_stats_pre"
+    torch.cuda.synchronize()
+    assert tfc.LAUNCHES[name] == 1 and sum(tfc.LAUNCHES.values()) == 1
+    torch.testing.assert_close(got[0].float(), want[0].float(),
+                               atol=ATOL[dtype], rtol=CONV_RTOL[dtype])
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,kh", CONV_SHAPES[:3])
+def test_fused_conv_grads_on_the_card_match_the_cpu(shape, k, kh,
+                                                    monkeypatch):
+    """conv_stats_pre's outputs and gradients (all six inputs, all three
+    cotangents) through the kernel on the card against the plain version
+    on the CPU, fp32."""
+    from paddle_tpu_torch.kernels import fused_conv as tfc
+
+    require_cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    rng = np.random.RandomState(7 + k)
+    c = shape[-1]
+    host = [rng.randn(*shape), rng.randn(c) * 0.1, rng.rand(c) + 0.5,
+            rng.rand(c) + 0.5, rng.randn(c) * 0.1,
+            rng.randn(k, c, kh, kh) * 0.1]
+    host = [torch.from_numpy(np.asarray(a, np.float32)) for a in host]
+    cts = None
+    res = {}
+    for dev in ("cuda", "cpu"):
+        args = [a.to(dev).requires_grad_(True) for a in host]
+        outs = tfc.conv_stats_pre(*args, True, 1e-5)
+        if cts is None:
+            cts = [torch.from_numpy(rng.randn(*o.shape).astype(np.float32))
+                   for o in outs]
+        grads = torch.autograd.grad(outs, args, [t.to(dev) for t in cts])
+        res[dev] = [t.detach().cpu() for t in list(outs) + list(grads)]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+

@@ -1,5 +1,6 @@
 """Training parity with the JAX package (tiny config, fp32, CPU): the
-pretraining loss and its gradient, AdamW with a decay mask, the
+pretraining loss and its gradient, AdamW with a decay mask, momentum
+(plain and Nesterov, with L2 decay), the
 global-norm clip, and a 3-step ``ShardedTrainStep`` on
 ``LlamaConfig.tiny(use_flash_attention=True)`` (the JAX side on a
 one-device ``ProcessMesh``, its flash kernels in interpret mode).
@@ -92,6 +93,29 @@ def test_adamw_with_decay_mask_matches_jax():
                                    atol=1e-6, rtol=0, err_msg=k)
         np.testing.assert_allclose(ts["v"][k].numpy(), np.asarray(js["v"][k]),
                                    atol=1e-6, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("nesterov", [False, True], ids=["plain", "nesterov"])
+def test_momentum_matches_jax(nesterov):
+    """fp32 velocity, L2 decay added to the gradient, Nesterov's step."""
+    params, _ = _params_and_grads(3)
+    j = jfopt.momentum(0.9, weight_decay=1e-2, use_nesterov=nesterov)
+    t = tfopt.momentum(0.9, weight_decay=1e-2, use_nesterov=nesterov)
+    jp = {k: jnp.asarray(x) for k, x in params.items()}
+    tp = {k: torch.from_numpy(x.copy()) for k, x in params.items()}
+    js, ts = j.init(jp), t.init(tp)
+    for step in range(3):
+        _, grads = _params_and_grads(20 + step)
+        jp, js = j.update({k: jnp.asarray(g) for k, g in grads.items()}, js,
+                          jp, jnp.asarray(0.1, jnp.float32))
+        tp, ts = t.update({k: torch.from_numpy(g) for k, g in grads.items()},
+                          ts, tp, 0.1)
+    for k in params:
+        np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                   atol=1e-6, rtol=0, err_msg=k)
+        np.testing.assert_allclose(ts["velocity"][k].numpy(),
+                                   np.asarray(js["velocity"][k]), atol=1e-6,
+                                   rtol=0, err_msg=k)
 
 
 @pytest.mark.parametrize("clip_norm", [0.5, 100.0], ids=["clips", "passes"])
