@@ -47,7 +47,10 @@ Phases, each printing JSON lines (and failing loudly on any check):
    the port never calls: forward for K1 and the decode kernels, its
    backward for K2 and K3), and the least time the card could take
    (``bound_ms``, by bytes or by operations). The decode kernels run at
-   the serving shapes; the flash-attention kernels K1-K3 compare out,
+   the serving shapes, the paged ones also at q_len 16 / 17 and
+   ``MMA_ROWS`` + 1 (the tensor-core body's one-tile and wide-tile
+   edges); each decode row names the kernel body it took (``rows``,
+   ``mma``, ``tiled``). The flash-attention kernels K1-K3 compare out,
    lse, dq, dk and dv at ``FLASH_SHAPES`` (the training shape in bf16
    and fp32, Llama-2-7B's heads, non-causal, segment ids, s = 1000).
    The quantized kernels: K5 and K7 (flash decode over int8 / fp8 K/V
@@ -62,17 +65,23 @@ Phases, each printing JSON lines (and failing loudly on any check):
    case), max_len 2048, for a causal bundle of 5 (asserted bit-equal to
    the maskless K6 / K7), the [2, 2] tree (7 nodes) and the [4, 2, 2]
    tree (29); SDPA with the boolean mask over the gathered pool is the
-   yardstick.
+   yardstick. ``split_sweep``: the tensor-core body at the 256-token
+   chunk (bf16, int8) and the [4, 2, 2] and [2, 2] verify bundles under
+   forced split counts 1, 2, 4 and 8 (each output held to the plain
+   version), beside the count ``launch_plan`` picks.
 5. ``serve``: Llama-2-7B at full width and depth, bf16, seeded random
    N(0, 0.02) weights made on the card, served by the paged engine
    (8 slots, max_len 2048, 16-token blocks, 256-token prefill chunks):
    12 greedy requests, prompts of 48 to 1500 tokens, four sharing a
    512-token prefix. Checks: every request completes with its token
    count; the paged kernel launched exactly layers x (decode steps +
-   prefill chunks) times with no paged fallback. A second engine with
-   60% of the worst-case blocks must preempt and still complete every
-   request. ``generate`` on two prompts launches the contiguous kernel
-   once per layer per decode step. Teacher-forced check: every emitted
+   prefill chunks) times with no paged fallback, and split by kernel
+   body exactly: every chunk on the tensor-core body (``mma``; in fp32
+   the ``tiled`` SIMT body), every decode step on the ``rows`` body. A
+   second engine with 60% of the worst-case blocks must preempt and
+   still complete every request. ``generate`` on two prompts launches
+   the contiguous kernel (``rows``) once per layer per decode step.
+   Teacher-forced check: every emitted
    token is the argmax of the plain uncached forward over prompt +
    emitted prefix wherever that forward's top-1/top-2 gap exceeds 0.1.
    In bf16 the agreement is reported; the whole phase then runs again
@@ -86,7 +95,9 @@ Phases, each printing JSON lines (and failing loudly on any check):
    token count; exact launch counts: chunks run both models through
    K6, the chain's verify and its k + 1 draft forwards go through K6,
    the tree's verify and depth + 1 draft forwards through K8 and
-   nothing else; no fallback. Reports tokens/s beside the plain
+   nothing else, every bundle of q_len >= 2 on the tensor-core body and
+   every q_len 1 draft step on the rows body; no fallback. Reports
+   tokens/s beside the plain
    engine's, rounds, drafted and accepted tokens, the accept histogram,
    tokens equal to the plain engine's and preemptions. A ``profile`` of
    a [4, 2, 2] round beside the plain decode step.
@@ -114,7 +125,12 @@ Phases, each printing JSON lines (and failing loudly on any check):
    offline ``generate`` chain and tree: the card's speculative tokens
    equal its plain tokens and the CPU's, drafted/accepted counts equal
    on both; a coupled pair (layer 1 zeroed to an identity, the draft
-   its first layer) accepts every draft.
+   its first layer) accepts every draft. ``edge``: the engine's last
+   prefill chunk past max_len (a 56-token prompt, chunks of 48,
+   max_len 64) at the same width and depth in fp32: the card's engine
+   tokens equal its ``generate`` and the CPU engine's; the paged kernel
+   at that chunk's shape (its table widened by dump-block columns)
+   against its plain version in fp32 and bf16.
 7. ``train``: the JAX package's bench.py primary point (134M Llama,
    hidden 768, 12 layers of 12 heads, vocab 32000, flash attention) at
    full width and depth in bf16 with fp32 rope tables, seeded N(0, 0.02)
@@ -130,7 +146,9 @@ Phases, each printing JSON lines (and failing loudly on any check):
    weight within lr and their mean difference within 1e-3 * lr.
 8. ``kernels``: one summary object per kernel (K1-K11; K8 and its
    quantized variant, K10 with and without its ReLU, K11 with and
-   without its prologue separately); then the card's nvidia-smi line;
+   without its prologue separately); K6 and K7 add their 256-token
+   chunk and K8 its [4, 2, 2] verify under ``bundle``; then the card's
+   nvidia-smi line;
    the last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Exits non-zero, printing no result, without a GPU or outside a checkout
@@ -243,8 +261,11 @@ def kernel_phase(rng):
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         isz = torch.empty((), dtype=dtype).element_size()
+        # paged 16 / 17: the tensor-core body's one-tile edge; MMA_ROWS
+        # + 1: its wide row tile's edge
         for kernel, q_lens in (("flash_decode_attention", (1, 8)),
-                               ("paged_flash_decode_attention", (1, 32, 256))):
+                               ("paged_flash_decode_attention",
+                                (1, 16, 17, 32, da.MMA_ROWS + 1, 256))):
             paged = kernel.startswith("paged")
             for q_len in q_lens:
                 for group in (1, 4, 8):
@@ -302,7 +323,9 @@ def kernel_phase(rng):
                         lens, q_len, H, KV, d, isz, extra, dname)
                     row = {"phase": "kernel", "name": kernel, "dtype": dname,
                            "B": Bq, "q_len": q_len, "heads": H, "kv_heads": KV,
-                           "group": group, "head_dim": d, "max_len": max_len,
+                           "group": group,
+                           "body": da.bundle_body(q_len, group, dtype),
+                           "head_dim": d, "max_len": max_len,
                            "block_size": bs if paged else None,
                            "pos": [int(p) for p in pos],
                            "max_abs_err": err, "atol": ATOL[dname], "ok": ok,
@@ -750,7 +773,15 @@ def serve_engine(model, requests, draft=None, **overrides):
     seconds = time.perf_counter() - t0
     launches = dict(da.LAUNCHES)
     fallbacks = dict(da.DISPATCH_FALLBACKS)
-    return eng, reqs, seconds, launches, fallbacks
+    return eng, reqs, seconds, launches, fallbacks, dict(da.BODY_LAUNCHES)
+
+
+def check_bodies(tag, bodies, want):
+    """The launches split by kernel body equal ``want`` exactly."""
+    got = {k: v for k, v in bodies.items() if v}
+    want = {k: v for k, v in want.items() if v}
+    check(got == want, f"{tag}: kernel bodies {got}, expected exactly {want}")
+    return got
 
 
 def _teacher_forced_all(model, prompts, outputs, label, strict):
@@ -781,8 +812,8 @@ def serve_phase(model, cfg, requests, kind, strict):
     for label, overrides in (("default", {}),
                              ("oversubscribed",
                               {"num_blocks": int(0.6 * full)})):
-        eng, reqs, secs, launches, fallbacks = serve_engine(model, requests,
-                                                            **overrides)
+        eng, reqs, secs, launches, fallbacks, bodies = serve_engine(
+            model, requests, **overrides)
         st = eng.stats()
         tag = f"{dname} {label}"
         for r, (p, m) in zip(reqs, requests):
@@ -793,6 +824,13 @@ def serve_phase(model, cfg, requests, kind, strict):
         check(k6 == expect, f"{tag}: paged kernel launched {k6} times, "
                             f"expected {L} x ({st['steps']} steps + "
                             f"{st['prefill_chunks']} chunks) = {expect}")
+        # every chunk on the tensor cores (fp32: the SIMT tiles), every
+        # decode step on the rows body
+        name = "paged_flash_decode_attention"
+        chunk = "mma" if dname == "bfloat16" else "tiled"
+        bodies = check_bodies(tag, bodies, {
+            f"{name}/{chunk}": L * st["prefill_chunks"],
+            f"{name}/rows": L * st["steps"]})
         paged_fb = {k: v for k, v in fallbacks.items()
                     if k.startswith("paged_")}
         check(not paged_fb, f"{tag}: paged fallbacks {paged_fb}")
@@ -810,7 +848,7 @@ def serve_phase(model, cfg, requests, kind, strict):
                "prompt_tokens": sum(len(p) for p, _ in requests),
                "generated_tokens": gen, "seconds": secs,
                "tokens_per_s": gen / secs, "kernel_launches": launches,
-               "fallbacks": fallbacks, "card": kind}
+               "kernel_bodies": bodies, "fallbacks": fallbacks, "card": kind}
         del eng
         torch.cuda.empty_cache()
         row.update(_teacher_forced_all(model, [p for p, _ in requests],
@@ -885,6 +923,8 @@ def generate_phase(model, cfg, requests, kind, strict):
     check(k4 == expect, f"{dname} generate: contiguous kernel launched {k4} "
                         f"times, expected {cfg.num_hidden_layers} x {N - 1} "
                         f"= {expect}")
+    check_bodies(f"{dname} generate", da.BODY_LAUNCHES,
+                 {"flash_decode_attention/rows": expect})
     row = {"phase": "generate", "dtype": dname, "B": 2, "prompt_len": S,
            "new_tokens": N, "seconds": secs, "tokens_per_s": 2 * N / secs,
            "kernel_launches": launches, "fallbacks": fallbacks, "card": kind}
@@ -933,6 +973,26 @@ def expected_spec_launches(L, Ld, overrides, st, quant):
     return out
 
 
+def expected_spec_bodies(L, Ld, overrides, st, quant):
+    """The same launches split by kernel body (bf16): chunks, verify
+    bundles and every draft-tree level wider than one node on the
+    tensor cores; the chain's draft steps and the tree's root level
+    (q_len 1) on the rows body."""
+    sp = st["spec"]
+    chunks, rounds, drafts = st["prefill_chunks"], sp["rounds"], \
+        sp["draft_rounds"]
+    sfx = "_quant" if quant else ""
+    paged, tree = "paged_flash_decode_attention" + sfx, \
+        "paged_flash_decode_attention_tree" + sfx
+    if "spec_tree" in overrides:
+        depth = len(overrides["spec_tree"])
+        return {f"{paged}/mma": (L + Ld) * chunks,
+                f"{tree}/mma": L * rounds + Ld * depth * drafts,
+                f"{tree}/rows": Ld * drafts}
+    return {f"{paged}/mma": (L + Ld) * chunks + L * rounds,
+            f"{paged}/rows": Ld * (overrides["spec_k"] + 1) * drafts}
+
+
 def spec_lane(model, draft, requests, label, overrides, plain, kind,
               quant=False):
     """One speculative lane over the traffic: every request completes with
@@ -945,7 +1005,7 @@ def spec_lane(model, draft, requests, label, overrides, plain, kind,
     from paddle_tpu_torch.kernels import quant_matmul as qm
 
     qm.reset_counters()
-    eng, reqs, secs, launches, fallbacks = serve_engine(
+    eng, reqs, secs, launches, fallbacks, bodies = serve_engine(
         model, requests, draft=draft, **overrides)
     qmm = dict(qm.LAUNCHES)
     st = eng.stats()
@@ -960,6 +1020,8 @@ def spec_lane(model, draft, requests, label, overrides, plain, kind,
         if v}
     got = {k: v for k, v in dict(launches, **qmm).items() if v}
     check(got == want, f"{tag}: launches {got}, expected exactly {want}")
+    bodies = check_bodies(tag, bodies, expected_spec_bodies(
+        L, draft.config.num_hidden_layers, overrides, st, quant))
     check(not fallbacks and not qm.DISPATCH_FALLBACKS,
           f"{tag}: fallbacks {fallbacks} {dict(qm.DISPATCH_FALLBACKS)}")
     check(sp["verify_kernel"], f"{tag}: verify declined the kernel")
@@ -986,7 +1048,7 @@ def spec_lane(model, draft, requests, label, overrides, plain, kind,
            "tokens_per_s": gen / secs,
            "plain_bf16_tokens_per_s": plain["bf16_tokens_per_s"],
            "kernel_launches": got, "kernel_launches_expected": want,
-           "card": kind}
+           "kernel_bodies": bodies, "card": kind}
     for name, ref in plain["outputs"].items():
         row[f"tokens_equal_to_plain_{name}_engine"] = sum(
             x == y for a, b in zip(outputs, ref) for x, y in zip(a, b))
@@ -1205,6 +1267,94 @@ def spec_parity_phase(kind):
     torch.cuda.empty_cache()
 
 
+# the engine's final prefill chunk past max_len: a 56-token prompt in
+# chunks of 48 against max_len 64, so the second chunk's padded end (96)
+# passes the slot's 4 blocks
+EDGE_SERVING = dict(max_slots=1, max_len=64, block_size=16, prefill_chunk=48,
+                    num_blocks=10)
+
+
+def edge_phase(kind):
+    """The engine's last chunk past max_len, Llama-2-7B's width at depth
+    2 in fp32 (positions up to 96 stay inside its rope table): the card's
+    engine tokens equal the card's ``generate`` and the CPU engine's, its
+    chunks ran on the fp32 tiles and its decode steps on the rows body.
+    Then the paged kernel at that chunk's shape (q_len 48 at pos 48 over
+    the slot's 4 blocks and its 3 dump-block columns), fp32 (SIMT) and
+    bf16 (tensor cores), against its plain version. Returns the kernel
+    rows."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.generation import generate
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
+    cpu = seeded_llama(cfg, SEED + 7, "cpu", torch.float32).eval()
+    gpu = LlamaForCausalLM(cfg, device=DEV, dtype=torch.float32).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    prompt = np.random.RandomState(3).randint(1, cfg.vocab_size, 56).tolist()
+    toks, bodies, chunks = {}, {}, {}
+    for name, model, dev in (("cuda", gpu, DEV), ("cpu", cpu, "cpu")):
+        eng = ServingEngine(model, ServingConfig(**EDGE_SERVING), device=dev)
+        da.reset_counters()
+        req = eng.submit(prompt, max_new_tokens=6)
+        eng.run_until_idle()
+        check(req.status == "completed",
+              f"edge: the {name} engine left the request unfinished")
+        toks[name] = list(req.output_tokens)
+        bodies[name] = dict(da.BODY_LAUNCHES)
+        chunks[name] = eng.stats()["prefill_chunks"]
+        steps = eng.stats()["steps"]
+        del eng
+    gen = generate(gpu, [prompt], max_new_tokens=6)[0, 56:].tolist()
+    L = cfg.num_hidden_layers
+    check_bodies("edge cuda engine", bodies["cuda"], {
+        "paged_flash_decode_attention/tiled": L * chunks["cuda"],
+        "paged_flash_decode_attention/rows": L * steps})
+    rows = []
+    dev = torch.device(DEV)
+    H, bs = cfg.num_attention_heads, 16
+    d = cfg.hidden_size // H
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bt = torch.tensor([[3, 7, 1, 5, 0, 0, 0]], dtype=torch.int32, device=dev)
+    pos = torch.tensor([48], dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        q, kp, vp = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((1, 48, H, d), (10, bs, H, d),
+                                   (10, bs, H, d)))
+        da.reset_counters()
+        got = da.paged_flash_decode_attention(q, kp, vp, bt, pos)
+        want = da.paged_flash_decode_attention_ref(q, kp, vp, bt, pos)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        row = {"phase": "kernel", "name": "paged_flash_decode_attention",
+               "case": "last chunk past max_len", "dtype": dname, "B": 1,
+               "q_len": 48, "heads": H, "kv_heads": H, "group": 1,
+               "body": da.bundle_body(48, 1, dtype), "head_dim": d,
+               "block_table": bt.tolist(), "pos": [48],
+               "launched": dict(da.BODY_LAUNCHES), "max_abs_err": err,
+               "atol": ATOL[dname], "ok": err <= ATOL[dname]}
+        emit(row)
+        rows.append(row)
+        check(row["ok"], f"edge kernel disagrees with its plain version: "
+                         f"{json.dumps(row)}")
+    emit({"phase": "edge", "dtype": "float32", "layers": 2,
+          "serving": EDGE_SERVING, "prompt_len": len(prompt), "new_tokens": 6,
+          "tokens_cuda": toks["cuda"], "tokens_cpu": toks["cpu"],
+          "generate_cuda": gen, "prefill_chunks": chunks["cuda"],
+          "kernel_bodies_cuda": bodies["cuda"], "card": kind})
+    check(toks["cuda"] == gen == toks["cpu"],
+          f"edge: card engine {toks['cuda']}, card generate {gen}, CPU "
+          f"engine {toks['cpu']} differ")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # quantized serving: K5, K7 (dequantizing flash decode) and K9 (quant matmul)
 # ---------------------------------------------------------------------------
@@ -1315,7 +1465,9 @@ def quant_attention_phase(rng):
                         row = {"phase": "kernel", "name": kernel,
                                "kv_format": fmt, "dtype": dname, "B": Bq,
                                "q_len": q_len, "heads": H, "kv_heads": KV,
-                               "group": group, "head_dim": d,
+                               "group": group,
+                               "body": da.bundle_body(q_len, group, dtype),
+                               "head_dim": d,
                                "max_len": max_len,
                                "block_size": bs if paged else None,
                                "pos": [int(p) for p in pos],
@@ -1336,7 +1488,8 @@ def quant_attention_phase(rng):
 
 # K8: (pool storage, query dtype) and the bundles: a causal chain of 5
 # (held bit for bit against K6/K7 without a mask), the [2, 2] tree (7
-# nodes, the small-bundle body) and the [4, 2, 2] tree (29, the tiled one)
+# nodes) and the [4, 2, 2] tree (29): bf16 queries take the tensor cores'
+# one 16-row tile and its wide tile, fp32 the SIMT rows and tiled bodies
 TREE_POOLS = (("bf16", "bfloat16"), ("f32", "float32"), ("int8", "bfloat16"),
               ("fp8", "bfloat16"))
 TREE_BUNDLES = ((None, 5), ((2, 2), 7), ((4, 2, 2), 29))
@@ -1433,7 +1586,8 @@ def tree_kernel_phase(rng):
                "kv_format": pool if quant else "bf16", "pool": pool,
                "dtype": dname, "tree": list(tree) if tree else "causal",
                "B": B, "q_len": w, "heads": H, "kv_heads": KV,
-               "group": group, "head_dim": d, "max_len": max_len,
+               "group": group, "body": da.bundle_body(w, group, dtype),
+               "head_dim": d, "max_len": max_len,
                "block_size": bs, "pos": [int(p) for p in pos],
                "max_abs_err": err, "atol": ATOL[dname], "ok": ok,
                "causal_mask_bitwise_equal_to_no_mask": bitwise,
@@ -1454,6 +1608,78 @@ def tree_kernel_phase(rng):
         del kp, vp, ks_, vs_
     torch.cuda.empty_cache()
     return rows
+
+
+# the split counts launch_plan chooses between, at the bundle shapes of
+# the serving path: (label, B, q_len, pool, tree)
+SPLIT_SHAPES = (("chunk", 1, 256, "bf16", None), ("chunk", 1, 256, "int8", None),
+                ("[4,2,2]", 8, 29, "bf16", (4, 2, 2)),
+                ("[4,2,2]", 8, 29, "int8", (4, 2, 2)),
+                ("[2,2]", 8, 7, "bf16", (2, 2)))
+
+
+def split_sweep_phase(rng):
+    """The tensor-core body under forced split counts (1, 2, 4, 8) at
+    Llama-2-7B's bundle shapes, each output against the plain version:
+    the measurement behind ``launch_plan``'s split rule. Reports the
+    split count the plan picks beside the times."""
+    import torch
+
+    from paddle_tpu_torch.generation import spec_tree_plan
+    from paddle_tpu_torch.kernels import decode_attention as da
+
+    dev = torch.device(DEV)
+    H, d, max_len, bs = 32, 128, 2048, 16
+    nb = max_len // bs
+    planner = da.launch_plan
+    for label, B, w, pool, tree in SPLIT_SHAPES:
+        pos = rng.randint(0, max_len - w + 1, B)
+        pos[0] = max_len - w
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+        q = torch.randn(B, w, H, d, device=dev).to(torch.bfloat16)
+        N = B * nb + 1
+        if pool == "int8":
+            kp, ksc = quantize_cache(torch.randn(N, bs, H, d, device=dev),
+                                     pool)
+            vp, vsc = quantize_cache(torch.randn(N, bs, H, d, device=dev),
+                                     pool)
+            scales = dict(k_scale=ksc, v_scale=vsc)
+        else:
+            kp = torch.randn(N, bs, H, d, device=dev).to(torch.bfloat16)
+            vp = torch.randn(N, bs, H, d, device=dev).to(torch.bfloat16)
+            scales = {}
+        bt = torch.tensor((rng.permutation(N - 1)[:B * nb] + 1)
+                          .reshape(B, nb).astype("int32"), device=dev)
+        mask = None if tree is None else torch.from_numpy(
+            spec_tree_plan(tree)["anc"])[None].expand(B, w, w) \
+            .contiguous().to(dev)
+        run = lambda: da.paged_flash_decode_attention(  # noqa: E731
+            q, kp, vp, bt, pos_t, ancestor_mask=mask, **scales)
+        want = da.paged_flash_decode_attention_ref(
+            q, kp, vp, bt, pos_t, ancestor_mask=mask, **scales)
+        chosen = planner(w, 1, torch.bfloat16, B, H, max_len,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+        times, errs = {}, []
+        try:
+            for n in (1, 2, 4, 8):
+                per = -(-max_len // 64 // n)
+                forced = dict(chosen, n_split=-(-max_len // 64 // per),
+                              split_keys=per * 64)
+                da.launch_plan = lambda *a, _p=forced: _p  # noqa: E731
+                errs.append((run().float() - want.float()).abs().max().item())
+                times[forced["n_split"]] = cuda_ms(run, 30)
+        finally:
+            da.launch_plan = planner
+        row = {"phase": "split_sweep", "bundle": label, "pool": pool, "B": B,
+               "q_len": w, "rows": chosen["rows"],
+               "plan_n_split": chosen["n_split"], "ms_by_n_split": times,
+               "max_abs_err": max(errs), "atol": ATOL["bfloat16"]}
+        emit(row)
+        check(row["max_abs_err"] <= ATOL["bfloat16"],
+              f"split sweep disagrees with the plain version: {row}")
+        del kp, vp
+    torch.cuda.empty_cache()
 
 
 def qmm_bound(M, N, K, isz, dname):
@@ -1568,7 +1794,7 @@ def serve_quant_phase(cfg, requests, bf16_outputs, bf16_tps, kind):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         qm.reset_counters()
-        eng, reqs, secs, launches, fallbacks = serve_engine(
+        eng, reqs, secs, launches, fallbacks, bodies = serve_engine(
             model, reqs_in, kv_format=fmt)
         qmm = dict(qm.LAUNCHES)
         qmm_fb = dict(qm.DISPATCH_FALLBACKS)
@@ -1585,6 +1811,10 @@ def serve_quant_phase(cfg, requests, bf16_outputs, bf16_tps, kind):
               f"steps + {st['prefill_chunks']} chunks) = {L * forwards}")
         check(launches["paged_flash_decode_attention"] == 0,
               f"{tag}: the unquantized paged kernel ran: {launches}")
+        bodies = check_bodies(tag, bodies, {
+            "paged_flash_decode_attention_quant/mma":
+                L * st["prefill_chunks"],
+            "paged_flash_decode_attention_quant/rows": L * st["steps"]})
         check(not fallbacks, f"{tag}: attention fallbacks {fallbacks}")
         check(qmm["quant_matmul"] == per_forward * forwards,
               f"{tag}: K9 launched {qmm['quant_matmul']} times, expected "
@@ -1607,8 +1837,9 @@ def serve_quant_phase(cfg, requests, bf16_outputs, bf16_tps, kind):
                "model_bytes": model_bytes(model),
                "model_bytes_bf16": bf16_bytes, "convert_seconds": convert_s,
                "peak_memory_gib": peak / 2**30,
-               "kernel_launches": launches, "quant_matmul_launches": qmm,
-               "fallbacks": fallbacks, "card": kind}
+               "kernel_launches": launches, "kernel_bodies": bodies,
+               "quant_matmul_launches": qmm, "fallbacks": fallbacks,
+               "card": kind}
         del eng
         torch.cuda.empty_cache()
         same = [a == b for a, b in zip(outputs, bf16_outputs)]
@@ -1662,6 +1893,8 @@ def quant_generate(model, cfg, requests, fmt):
                         f"{cfg.num_hidden_layers} x {N - 1} = {expect}")
     check(launches["flash_decode_attention"] == 0,
           f"{fmt} generate: the unquantized kernel ran: {launches}")
+    check_bodies(f"{fmt} generate", da.BODY_LAUNCHES,
+                 {"flash_decode_attention_quant/rows": expect})
     check(set(fallbacks) <= {"quant_q_len"},
           f"{fmt} generate: fallbacks {fallbacks}")
     return {"B": 2, "prompt_len": S, "new_tokens": N, "seconds": secs,
@@ -2354,7 +2587,8 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
             "replaces": "paddle_tpu/pallas_kernels/decode_attention.py:685 "
                         "(_paged_flash_decode, _decode_kernel :336)",
             "tpu_counterpart": "K6", "launches": serve_launches,
-            "main": dict(dtype="bfloat16", q_len=1, group=1)},
+            "main": dict(dtype="bfloat16", q_len=1, group=1),
+            "bundle": dict(dtype="bfloat16", q_len=256, group=1)},
         "flash_decode_attention_quant": {
             "replaces": "paddle_tpu/pallas_kernels/decode_attention.py:491 "
                         "(_flash_decode quant, _decode_kernel_quant :371)",
@@ -2367,20 +2601,26 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
                         ":371)",
             "tpu_counterpart": "K7", "launches": quant_launches["serve"],
             "main": dict(dtype="bfloat16", kv_format="int8", q_len=1,
-                         group=1)},
+                         group=1),
+            "bundle": dict(dtype="bfloat16", kv_format="int8", q_len=256,
+                           group=1)},
         "paged_flash_decode_attention_tree": {
             "replaces": "paddle_tpu/pallas_kernels/decode_attention.py:685 "
                         "(_paged_flash_decode with ancestor_mask, "
                         "_cell_partial mask branch :299-316)",
             "tpu_counterpart": "K8", "launches": spec_launches["tree [2,2]"],
-            "main": dict(dtype="bfloat16", pool="bf16", q_len=7, group=1)},
+            "main": dict(dtype="bfloat16", pool="bf16", q_len=7, group=1),
+            "bundle": dict(dtype="bfloat16", pool="bf16", q_len=29,
+                           group=1)},
         "paged_flash_decode_attention_tree_quant": {
             "replaces": "paddle_tpu/pallas_kernels/decode_attention.py:685 "
                         "(_paged_flash_decode quant with ancestor_mask, "
                         "_decode_kernel_quant :371 -> _cell_partial mask "
                         "branch :299-316)",
             "tpu_counterpart": "K8", "launches": quant_launches["spec"],
-            "main": dict(dtype="bfloat16", pool="int8", q_len=7, group=1)},
+            "main": dict(dtype="bfloat16", pool="int8", q_len=7, group=1),
+            "bundle": dict(dtype="bfloat16", pool="int8", q_len=29,
+                           group=1)},
         "quant_matmul": {
             "replaces": "paddle_tpu/pallas_kernels/quant_matmul.py:193 "
                         "(quant_matmul, _qmm_kernel :126)",
@@ -2390,22 +2630,35 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
                          N=4096, K=4096)},
     }
     rows = rows + quant_rows + tree_rows
+
+    def pick(mine, want):
+        return next(r for r in mine
+                    if all(r.get(k) == v for k, v in want.items()))
+
     for name, m in meta.items():
         mine = [r for r in rows if r["name"] == name]
-        main = next(r for r in mine
-                    if all(r.get(k) == v for k, v in m["main"].items()))
-        out.append({"name": name, "route": "cuda",
-                    "source": m.get("source", "paddle_tpu_torch/kernels/"
-                                              "csrc/decode_attention.cu"),
-                    "replaces": m["replaces"],
-                    "tpu_counterpart": m["tpu_counterpart"],
-                    "launches": m["launches"][name],
-                    "max_abs_err": max(r["max_abs_err"] for r in mine),
-                    "ms": main["ms"], "plain_ms": main["plain_ms"],
-                    "bound_ms": main["bound_ms"],
-                    "bound_by": main["bound_by"],
-                    "library_ms": main["library_ms"],
-                    "ok": all(r["ok"] for r in mine)})
+        main = pick(mine, m["main"])
+        entry = {"name": name, "route": "cuda",
+                 "source": m.get("source", "paddle_tpu_torch/kernels/"
+                                           "csrc/decode_attention.cu"),
+                 "replaces": m["replaces"],
+                 "tpu_counterpart": m["tpu_counterpart"],
+                 "launches": m["launches"][name],
+                 "max_abs_err": max(r["max_abs_err"] for r in mine),
+                 "ms": main["ms"], "plain_ms": main["plain_ms"],
+                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                 "library_ms": main["library_ms"],
+                 "ok": all(r["ok"] for r in mine)}
+        if "body" in main:
+            entry["body"] = main["body"]
+        if "bundle" in m:
+            # the bundle shape beside the decode shape: a 256-token
+            # prefill chunk (K6, K7) or the [4, 2, 2] verify (K8)
+            b = pick(mine, m["bundle"])
+            entry["bundle"] = {k: b[k] for k in (
+                "q_len", "B", "body", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "max_abs_err")}
+        out.append(entry)
     return out
 
 
@@ -2464,6 +2717,7 @@ def main(argv=None) -> int:
     quant_rows = quant_attention_phase(np.random.RandomState(SEED + 4)) \
         + quant_matmul_phase()
     tree_rows = tree_kernel_phase(np.random.RandomState(SEED + 6))
+    split_sweep_phase(np.random.RandomState(SEED + 8))
     flash_rows = flash_kernel_phase(rng)
 
     cfg = LlamaConfig.llama2_7b(dtype="bfloat16")
@@ -2501,6 +2755,7 @@ def main(argv=None) -> int:
                                        bf16_tps, kind)
     quant_parity_phase(kind)
     spec_parity_phase(kind)
+    rows += edge_phase(kind)
 
     train_launches = train_phase(kind)
     train_parity_phase(kind)

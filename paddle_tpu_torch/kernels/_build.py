@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``. The
 build runs at first use, from the sources in the package only, into
 ``kernels/build/`` (listed in ``.gitignore``); a library whose name
-carries the hash of its source is reused while the source is unchanged.
+carries the hash of its source and of the ``csrc/`` headers it includes
+is reused while none of them changes.
 All sources build in parallel, one ``nvcc`` each.
 
 Nothing here runs at import: the CPU tests import every module, and a
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,9 +33,9 @@ BUILD_DIR = os.path.join(_HERE, "build")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
     # q k v ks vs pos bt mask o/m/l partials out, then (bf16, kv storage,
-    # B, q_len, H, KV, D, max_len, bs, nb, n_split, split_keys, rows)
+    # B, q_len, H, KV, D, max_len, bs, nb, n_split, split_keys, body, rows)
     "decode_attention.cu": {
-        "paddle_flash_decode": [_P] * 12 + [_I] * 13 + [_F, _P],
+        "paddle_flash_decode": [_P] * 12 + [_I] * 14 + [_F, _P],
     },
     # x w scale out, then (bf16, fp8, M, N, K)
     "quant_matmul.cu": {
@@ -71,11 +73,32 @@ def _nvcc() -> str:
         "toolkit is needed to build paddle_tpu_torch's kernels")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_files(source: str) -> list:
+    """``source`` and every header of ``csrc/`` it includes with quotes,
+    directly or through another header, in the order first reached."""
+    seen, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.append(name)
+        with open(os.path.join(_CSRC, name), "rb") as fh:
+            todo += [m.decode() for m in _INCLUDE.findall(fh.read())]
+    return seen
+
+
 def _lib_path(source: str) -> str:
-    with open(os.path.join(_CSRC, source), "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    """The library's path, named by a hash of the source and the headers
+    it includes, so that an edited header builds anew."""
+    h = hashlib.sha256()
+    for name in _source_files(source):
+        with open(os.path.join(_CSRC, name), "rb") as fh:
+            h.update(name.encode() + b"\0" + fh.read())
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 
 
 def _start(source: str):

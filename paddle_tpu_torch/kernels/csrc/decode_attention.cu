@@ -16,9 +16,11 @@
 //   layout [B, q_len, H, D]. A row with no visible key returns zeros
 //   (l is clamped at 1e-30 in the merge).
 //
-// What bounds it: device-memory bytes. Decode (q_len 1) does 2 flops per
-// K/V element it reads, far below the ~295 flops/byte an H100 needs to
-// be compute-bound, so the floor is reading each valid K/V byte once.
+// What bounds it. Decode (q_len 1) does 2 flops per K/V element it
+// reads, far below the ~295 flops/byte an H100 needs to be compute-bound,
+// so the floor is reading each valid K/V byte once. A verify bundle (q_len
+// 5-29, 8 rows) is still bound by bytes. A 256-token prefill chunk over a
+// 2048-token cache does ~8 GFLOP on ~34 MB: near the operations line.
 //
 // What the design does about that:
 //   - every block owns (KV split, query-row tile, batch
@@ -30,16 +32,21 @@
 //     prefill tile, are never read;
 //   - K/V rows are read once per (row tile, kv head) and serve the kv
 //     head's whole query group, so the GQA expansion never touches
-//     device memory. Two block bodies: for a bundle of at most 8 rows
-//     (the decode step) flash_decode_rows streams keys through all four
-//     warps with the head dimension split across lanes (coalesced row
-//     reads, no staging); for larger bundles (prefill chunks)
-//     flash_decode_partial stages 32-key chunks in shared memory with
-//     16-byte vector loads, tiles 64 query rows per block and
-//     register-tiles both products;
+//     device memory;
+//   - three block bodies, chosen by the wrapper from q_len, the group and
+//     q's dtype (decode_attention.py bundle_body):
+//       flash_decode_rows (the bf16 decode step, q_len 1, and fp32 bundles
+//         of at most 8 rows): four warps stream keys with the head
+//         dimension split across lanes (coalesced row reads, no staging);
+//       flash_decode_mma (every bf16 bundle of q_len >= 2: prefill chunks,
+//         verify bundles, draft-tree levels): bf16 mma.sync m16n8k16 with
+//         fp32 accumulate, K/V tiles in shared memory through a cp.async
+//         ring (see its note below);
+//       flash_decode_partial (fp32 bundles of more than 8 rows): plain
+//         fp32 FMA from shared memory, the card-against-CPU parity path;
 //   - each split writes an (o, m, l) partial; a second small launch
 //     merges them with the log-sum-exp of decode_attention.py:505-509.
-// The arithmetic is plain fp32 FMA; wgmma / TMA are later work.
+// wgmma and TMA are later work.
 //
 // Tree-speculative bundles (K8, the mask branch of _cell_partial,
 // decode_attention.py:299-316): with an ancestor mask [B, q_len, q_len]
@@ -48,9 +55,10 @@
 // kpos < len - q_len (every committed position is an ancestor of every
 // node) or mask[b, i, kpos - (len - q_len)] is set; keys past len stay
 // masked. Each block holds the mask rows of its query tokens as bits in
-// shared memory (at most 64 tokens x 256 bits in flash_decode_partial,
-// 8 x 8 in flash_decode_rows) and both storage paths go through the one
-// visibility test, so the mask covers K6 and K7 alike. The masked bodies
+// shared memory (at most 64 tokens x 256 bits in flash_decode_partial and
+// flash_decode_mma, 8 x 8 in flash_decode_rows) and every storage path
+// goes through the one visibility test, so the mask covers K6 and K7
+// alike. The masked bodies
 // are separate instantiations (MASKED) of the paged kernels: the causal
 // launch carries no extra operand. A masked block scans its split up to
 // len (a general mask may reveal any bundle key); keys it adds past the
@@ -61,12 +69,13 @@
 // Quantized caches (K5, K7): K/V are stored as int8 or fp8 e4m3 (the
 // storage type S, beside the compute type T of q) with one f32 absmax
 // scale per (token, kv head), indexed like a K/V row without the D
-// factor. Each value is dequantized where it is loaded, in the TPU
-// prologue's order: widened to f32, times its scale, DIVIDED by the
-// bound (127 or 448), then rounded to T (astype(q.dtype) at
-// decode_attention.py:398/:400; a no-op for fp32) before it is used as
-// f32. Only the narrow bytes and the scales cross device memory, about
-// half of a bf16 cache's bytes at head_dim 128.
+// factor. Each value is dequantized in the TPU prologue's order: widened
+// to f32, times its scale, DIVIDED by the bound (127 or 448), then
+// rounded to T (astype(q.dtype) at decode_attention.py:398/:400; a no-op
+// for fp32). The SIMT bodies do that where they load a value;
+// flash_decode_mma once per tile in shared memory, before the MMA. Only
+// the narrow bytes and the scales cross device memory, about half of a
+// bf16 cache's bytes at head_dim 128.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -74,6 +83,9 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "div_bound.cuh"  // exact x / 127, x / 448 without a division
+#include "mma_bf16.cuh"   // bf16 typedef, mma16816, fragment loads
 
 namespace {
 
@@ -708,6 +720,426 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 bundles on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// flash_decode_mma: every bf16 bundle of q_len >= 2 (prefill chunks,
+// verify bundles, draft-tree levels; K4-K8 at those shapes). It replaces
+// the body _cell_partial (decode_attention.py:274) of _flash_decode (:491)
+// and _paged_flash_decode (:685), which runs both products on the TPU's
+// matrix unit in the input dtype: q.k^T with an f32 result, then
+// p.astype(v.dtype) . v (:319). So does this body: bf16 mma.sync m16n8k16
+// with fp32 accumulate, p rounded to bf16 before P.V, and m, l and the
+// rescale in fp32 (the FlashAttention-2 arrangement of flash_attention.cu:
+// scores, probabilities and accumulators stay in registers).
+//
+// What bounds it: a 256-token prefill chunk over a long cache sits near
+// the operations line; a verify bundle (5-29 rows) is bound by bytes.
+// What the design does about that:
+//   - each warp owns 16 query rows. A wide bundle (more than 16 rows: a
+//     chunk, a [4,2,2] tree, a grouped bundle) gives each of the block's
+//     four warps its own 16 rows and every warp walks the same key tiles,
+//     so a K/V tile read from device memory serves 64 rows. A small
+//     bundle (at most 16 rows) takes one 16-row tile and the four warps
+//     split each key tile between them (16 keys each), then merge their
+//     (m, l, acc) through shared memory: four warps still stream its keys;
+//   - K/V arrive in 64-key tiles of bf16 rows in shared memory, gathered
+//     row by row through the block table (kv_row) with 16-byte cp.async
+//     copies into a two-stage ring: the next tile's loads are in flight
+//     while this tile's products run;
+//   - int8/fp8 storage: the ring holds the narrow bytes and their f32
+//     scales; each tile is dequantized once into a bf16 tile before the
+//     MMA, in the prologue's order (f32, times the scale, divided by the
+//     bound, rounded to bf16), and that work is shared by every row. The
+//     dequant, not the MMA, bounds the narrow bundles, and IEEE
+//     division's per-value check and branch dominated it: the division
+//     is div_bound's exact fma form, picked once a tile by a vote over
+//     the tile's scales;
+//   - keys past a split's end or a row's length arrive as zeros (cp.async
+//     zero fill) and are masked; a warp skips a key tile that lies wholly
+//     past its rows' causal edge unless MASKED. Keys that a MASKED block
+//     scans beyond the causal edge are invisible: p = 0 and alpha =
+//     exp(0) = 1 leave m, l and acc bit for bit unchanged, so a causal
+//     mask gives the maskless output exactly.
+
+constexpr int MMA_KEYS = 64;  // keys per K/V tile
+constexpr int MMA_PAD = 8;    // bf16 row pad: 16 bytes, conflict-free fragments
+// rows per block of a wide bundle: four warps of 16. An eight-warp tile
+// (128 rows) halves a 256-row chunk's K/V re-reads but measured no faster
+// there in bf16 and slower on a 29-row bundle, six of its warps idle; one
+// tile size keeps one instantiation (PERF.md, the kernel table).
+constexpr int MMA_ROWS = 16 * kWarps;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Shared memory of flash_decode_mma: bf16 storage keeps a two-stage ring
+// of bf16 K and V tiles; narrow storage a two-stage ring of the narrow
+// tiles and their scales, and one bf16 K/V pair the dequant writes. A
+// small bundle's final merge reuses the bf16 tiles.
+template <typename S, int D>
+struct MmaSmem {
+  static constexpr bool kQuant = !std::is_same<S, bf16>::value;
+  static constexpr int LD = D + MMA_PAD;     // bf16 tile row
+  static constexpr int TILE = MMA_KEYS * LD;  // bf16 elements of one tile
+  static constexpr size_t kBf16Bytes = (kQuant ? 2 : 4) * TILE * sizeof(bf16);
+  static constexpr size_t kNarrowBytes =
+      kQuant ? 2 * 2 * MMA_KEYS * D * sizeof(S) : 0;
+  static constexpr size_t kScaleBytes =
+      kQuant ? 2 * 2 * MMA_KEYS * sizeof(float) : 0;
+  static constexpr size_t bytes = kBf16Bytes + kNarrowBytes + kScaleBytes;
+  // the small bundle's merge: (acc, m, l) of four warps x 16 rows
+  static_assert((size_t)kWarps * 16 * (D + 2) * sizeof(float) <= kBf16Bytes,
+                "merge buffer fits the tiles");
+};
+
+// One (split, row tile, batch row * KV + kv head) block of four warps.
+// With SMALL, one 16-row tile whose key tiles the warps split; else
+// MMA_ROWS rows, 16 a warp. It writes the (o, m, l) partial of
+// flash_decode_partial for flash_decode_merge.
+template <typename S, int D, bool PAGED, bool MASKED, bool SMALL>
+__global__ void __launch_bounds__(kThreads)
+    flash_decode_mma(const bf16* __restrict__ q, const S* __restrict__ k,
+                     const S* __restrict__ v, const float* __restrict__ ks,
+                     const float* __restrict__ vs,
+                     const int* __restrict__ pos, const int* __restrict__ bt,
+                     const uint8_t* __restrict__ mask,
+                     float* __restrict__ o_part, float* __restrict__ m_part,
+                     float* __restrict__ l_part, int q_len, int H, int KV,
+                     int max_len, int bs, int nb, int split_keys,
+                     float scale) {
+  using L = MmaSmem<S, D>;
+  constexpr int NT = kThreads;
+  constexpr int NW = kWarps;
+  constexpr int LD = L::LD;
+  constexpr int KD = D / 16;   // k-steps of q.k
+  constexpr int ND = D / 8;    // n-tiles of the accumulator
+  constexpr int KW = SMALL ? MMA_KEYS / NW : MMA_KEYS;  // a warp's keys a tile
+  constexpr int NJ = KW / 8;   // n-tiles of the scores
+  constexpr int ROWS = SMALL ? 16 : MMA_ROWS;
+  static_assert(KW % 16 == 0 && NJ * 4 <= 32, "score tiling");
+
+  extern __shared__ __align__(128) unsigned char mma_smem[];
+  bf16* sKV = reinterpret_cast<bf16*>(mma_smem);
+  S* sNarrow = reinterpret_cast<S*>(mma_smem + L::kBf16Bytes);
+  float* sScale =
+      reinterpret_cast<float*>(mma_smem + L::kBf16Bytes + L::kNarrowBytes);
+  // MASKED: the mask bits of the tile's query tokens (at most ROWS)
+  __shared__ uint32_t sMask[MASKED ? ROWS * kMaskWords : 1];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  const int split = blockIdx.x;
+  const int n_split = gridDim.x;
+  const int row0 = blockIdx.y * ROWS;
+  const int bk = blockIdx.z;
+  const int b = bk / KV;
+  const int kvh = bk % KV;
+  const int group = H / KV;
+  const int gq = q_len * group;
+  const int nr = min(ROWS, gq - row0);
+  const int len = min(pos[b] + q_len, max_len);
+  const int qbase = len - q_len;  // absolute position of bundle token 0
+  const int q_hi = qbase + (row0 + nr - 1) / group;
+  const int t0 = row0 / group;  // the tile's first query token
+  const int k_begin = split * split_keys;
+  const int k_end = MASKED ? min(k_begin + split_keys, len)
+                           : min(min(k_begin + split_keys, len), q_hi + 1);
+  const long long part = ((long long)bk * n_split + split) * gq + row0;
+  // row r (of the tile) as [b, i, kvh * group + g, :] of q
+  auto row_off = [&](int r) {
+    const int row = row0 + r;
+    return (((long long)b * q_len + row / group) * H + kvh * group +
+            row % group) * D;
+  };
+
+  if (k_begin >= k_end) {
+    // nothing visible in this split: the skip partial (acc 0, m -1e30,
+    // l 0) contributes exact zeros to the merge
+    for (int idx = tid; idx < nr * D; idx += NT) o_part[part * D + idx] = 0.f;
+    for (int r = tid; r < nr; r += NT) {
+      m_part[part + r] = kNegInf;
+      l_part[part + r] = 0.f;
+    }
+    return;
+  }
+  if constexpr (MASKED)  // read after the tile loop's first barrier
+    load_mask_bits(mask, b, q_len, t0, (row0 + nr - 1) / group - t0 + 1,
+                   kMaskWords, sMask, tid);
+
+  // this warp's rows (relative to the tile) and its keys within a tile
+  const int wr0 = SMALL ? 0 : warp * 16;
+  const int wk0 = SMALL ? warp * KW : 0;
+  const int w_rows = min(16, nr - wr0);  // <= 0: a warp past the bundle
+  const int w_hi = qbase + (row0 + wr0 + max(w_rows, 1) - 1) / group;
+  bool rok[2];
+  int ti[2];
+  const uint32_t* mrow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = wr0 + g + 8 * r;
+    rok[r] = rr < nr;
+    ti[r] = (row0 + rr) / group;
+    mrow[r] = sMask + (MASKED && rok[r] ? (ti[r] - t0) * kMaskWords : 0);
+  }
+
+  // q as A fragments, straight from device memory (read once)
+  uint32_t qa[KD][4];
+  {
+    const bf16* qr[2] = {q + (rok[0] ? row_off(wr0 + g) : 0),
+                         q + (rok[1] ? row_off(wr0 + g + 8) : 0)};
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      const int c = kk * 16 + 2 * t;
+      qa[kk][0] = rok[0] ? __ldg(reinterpret_cast<const unsigned*>(qr[0] + c)) : 0u;
+      qa[kk][1] = rok[1] ? __ldg(reinterpret_cast<const unsigned*>(qr[1] + c)) : 0u;
+      qa[kk][2] = rok[0] ? __ldg(reinterpret_cast<const unsigned*>(qr[0] + c + 8)) : 0u;
+      qa[kk][3] = rok[1] ? __ldg(reinterpret_cast<const unsigned*>(qr[1] + c + 8)) : 0u;
+    }
+  }
+
+  // issue the cp.async copies of key tile `it` into ring stage `stage`
+  auto load_tile = [&](int it, int stage) {
+    constexpr int EPC = 16 / sizeof(S);  // elements per 16-byte copy
+    constexpr int CPR = D / EPC;         // copies per row
+    const int k0 = k_begin + it * MMA_KEYS;
+    const int kv = min(MMA_KEYS, k_end - k0);
+    S* dK;
+    int ld;
+    if constexpr (L::kQuant) {
+      dK = sNarrow + stage * 2 * MMA_KEYS * D;
+      ld = D;
+    } else {
+      dK = reinterpret_cast<S*>(sKV) + stage * 2 * L::TILE;
+      ld = LD;
+    }
+    S* dV = dK + MMA_KEYS * ld;
+    for (int idx = tid; idx < MMA_KEYS * CPR; idx += NT) {
+      const int j = idx / CPR;
+      const int c = (idx % CPR) * EPC;
+      const bool ok = j < kv;
+      const long long row =
+          ok ? kv_row<PAGED>(b, k0 + j, kvh, KV, max_len, bt, bs, nb) : 0;
+      cp_async16(dK + j * ld + c, k + row * D + c, ok);
+      cp_async16(dV + j * ld + c, v + row * D + c, ok);
+    }
+    if constexpr (L::kQuant) {
+      float* dS = sScale + stage * 2 * MMA_KEYS;
+      for (int j = tid; j < MMA_KEYS; j += NT) {
+        const bool ok = j < kv;
+        const long long row =
+            ok ? kv_row<PAGED>(b, k0 + j, kvh, KV, max_len, bt, bs, nb) : 0;
+        cp_async4(dS + j, ks + row, ok);
+        cp_async4(dS + MMA_KEYS + j, vs + row, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  const int n_tiles = (k_end - k_begin + MMA_KEYS - 1) / MMA_KEYS;
+  load_tile(0, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) {
+      load_tile(it + 1, stage ^ 1);  // its stage was freed by the last barrier
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* tK;
+    if constexpr (L::kQuant) {
+      // dequantize this stage into the bf16 pair once for all rows:
+      // f32(q) * s / bound, the prologue's order. One vote over the tile's
+      // 128 scales (one a thread) picks the exact fma division, branch
+      // free; a scale outside its range (never a real absmax) takes the
+      // IEEE division value by value.
+      const S* nK = sNarrow + stage * 2 * MMA_KEYS * D;
+      const float* sc = sScale + stage * 2 * MMA_KEYS;
+      static_assert(2 * MMA_KEYS == NT, "one scale a thread");
+      if (__syncthreads_and(exact_scale(sc[tid]))) {
+        for (int idx = tid; idx < 2 * MMA_KEYS * (D / 8); idx += NT) {
+          const int j = idx / (D / 8);  // 0 .. 127: K rows, then V rows
+          const int c = (idx % (D / 8)) * 8;
+          float f[8];
+          load_vals<S, 8>(nK + j * D + c, f);
+          const float s = sc[j];
+          uint4 w;
+          w.x = pack2f(div_bound<S>(__fmul_rn(f[0], s)),
+                       div_bound<S>(__fmul_rn(f[1], s)));
+          w.y = pack2f(div_bound<S>(__fmul_rn(f[2], s)),
+                       div_bound<S>(__fmul_rn(f[3], s)));
+          w.z = pack2f(div_bound<S>(__fmul_rn(f[4], s)),
+                       div_bound<S>(__fmul_rn(f[5], s)));
+          w.w = pack2f(div_bound<S>(__fmul_rn(f[6], s)),
+                       div_bound<S>(__fmul_rn(f[7], s)));
+          *reinterpret_cast<uint4*>(sKV + j * LD + c) = w;
+        }
+      } else {
+        for (int idx = tid; idx < 2 * MMA_KEYS * D; idx += NT) {
+          const int j = idx / D;
+          const int c = idx % D;
+          sKV[j * LD + c] =
+              __float2bfloat16(to_f(nK[j * D + c]) * sc[j] / kv_bound<S>());
+        }
+      }
+      __syncthreads();
+      tK = sKV;
+    } else {
+      tK = sKV + stage * 2 * L::TILE;
+    }
+    const bf16* tV = tK + L::TILE;
+    const int kw = k_begin + it * MMA_KEYS + wk0;  // this warp's first key
+    // nothing to add: no rows, keys wholly past the split, or (causal)
+    // wholly past the warp's last row
+    if (w_rows > 0 && kw < k_end && (MASKED || kw <= w_hi)) {
+      float s[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          uint32_t kf[2];
+          frag_bt(kf, tK, LD, wk0 + j * 8, kk * 16);
+          mma16816(s[j], qa[kk], kf);
+        }
+      // online softmax for rows g and g + 8
+      uint32_t vis = 0;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int kpos = kw + j * 8 + 2 * t + (e & 1);
+          const bool ok = rok[r] && kpos < k_end &&
+                          visible<MASKED>(kpos, qbase, ti[r], mrow[r]);
+          const float x = ok ? s[j][e] * scale : kNegInf;
+          s[j][e] = x;
+          vis |= (ok ? 1u : 0u) << (j * 4 + e);
+          mx[r] = fmaxf(mx[r], x);
+        }
+      float m_new[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m_new[r] = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = expf(m[r] - m_new[r]);
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p =
+              (vis >> (j * 4 + e)) & 1u ? expf(s[j][e] - m_new[e >> 1]) : 0.f;
+          s[j][e] = p;
+          sum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+        m[r] = m_new[r];
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+      // P . V with p rounded to bf16, as _cell_partial does
+#pragma unroll
+      for (int kk = 0; kk < KW / 16; ++kk) {
+        uint32_t pa[4];
+        acc_as_a(pa, s, kk);
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          uint32_t vf[2];
+          frag_b(vf, tV, LD, wk0 + kk * 16, n * 8);
+          mma16816(o[n], pa, vf);
+        }
+      }
+    }
+    __syncthreads();  // this stage's readers are done
+  }
+
+  if constexpr (!SMALL) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = wr0 + g + 8 * r;
+      if (!rok[r]) continue;
+      float2* dst = reinterpret_cast<float2*>(o_part + (part + rr) * D + 2 * t);
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        dst[n * 4] = make_float2(o[n][2 * r], o[n][2 * r + 1]);
+      if (t == 0) {
+        m_part[part + rr] = m[r];
+        l_part[part + rr] = l[r];
+      }
+    }
+  } else {
+    // merge the four warps' (m, l, acc) of the 16 rows (the ring is free:
+    // the loop ended on a barrier)
+    float* sAcc = reinterpret_cast<float*>(mma_smem);  // [NW][16][D]
+    float* sM = sAcc + NW * 16 * D;                    // [NW][16]
+    float* sL = sM + NW * 16;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = g + 8 * r;
+      if (t == 0) {
+        sM[warp * 16 + rr] = m[r];
+        sL[warp * 16 + rr] = l[r];
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        sAcc[(warp * 16 + rr) * D + n * 8 + 2 * t] = o[n][2 * r];
+        sAcc[(warp * 16 + rr) * D + n * 8 + 2 * t + 1] = o[n][2 * r + 1];
+      }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < nr * D; idx += NT) {
+      const int r = idx / D;
+      const int c = idx % D;
+      float mt = kNegInf;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) mt = fmaxf(mt, sM[w * 16 + r]);
+      float lt = 0.f, at = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const float f = expf(sM[w * 16 + r] - mt);
+        lt += sL[w * 16 + r] * f;
+        at += sAcc[(w * 16 + r) * D + c] * f;
+      }
+      o_part[(part + r) * D + c] = at;
+      if (c == 0) {
+        m_part[part + r] = mt;
+        l_part[part + r] = lt;
+      }
+    }
+  }
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -770,52 +1202,99 @@ cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// rows 1, 2, 4, 8: the small-bundle kernel (one tile); 64: the tiled
-// kernel (ROWS query rows per block)
+template <typename S, int D, bool PAGED, bool MASKED, bool SMALL>
+cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = MmaSmem<S, D>::bytes;
+  constexpr int ROWS = SMALL ? 16 : MMA_ROWS;
+  auto kern = flash_decode_mma<S, D, PAGED, MASKED, SMALL>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const int gq = a.q_len * (a.H / a.KV);
+  if (SMALL && gq > ROWS) return cudaErrorInvalidValue;
+  const dim3 grid(a.n_split, (gq + ROWS - 1) / ROWS, a.B * a.KV);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const S*>(a.k),
+      static_cast<const S*>(a.v), a.ks, a.vs, a.pos, a.bt, a.mask, a.o_part,
+      a.m_part, a.l_part, a.q_len, a.H, a.KV, a.max_len, a.bs, a.nb,
+      a.split_keys, a.scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_decode_merge<bf16, D><<<dim3(gq, a.B * a.KV), kThreads, 0, stream>>>(
+      a.o_part, a.m_part, a.l_part, static_cast<bf16*>(a.out), a.q_len, a.H,
+      a.KV, a.n_split);
+  return cudaGetLastError();
+}
+
+// the bodies of the C entry (decode_attention.py _BODY_CODES)
+enum Body { kBodyRows = 0, kBodyTiled = 1, kBodyMma = 2 };
+
+// rows: the row tile. kBodyRows 1, 2, 4, 8 (one tile, SR rows);
+// kBodyTiled 64 (fp32 only); kBodyMma 16 (one small tile) or MMA_ROWS
+// (bf16 only)
 template <typename T, typename S, int D, bool PAGED, bool MASKED>
-cudaError_t by_rows(const Args& a, int rows, cudaStream_t stream) {
-  if (rows == 1) return launch_rows<T, S, D, 1, PAGED, MASKED>(a, stream);
-  if (rows == 2) return launch_rows<T, S, D, 2, PAGED, MASKED>(a, stream);
-  if (rows == 4) return launch_rows<T, S, D, 4, PAGED, MASKED>(a, stream);
-  if (rows == 8) return launch_rows<T, S, D, 8, PAGED, MASKED>(a, stream);
-  if (rows == ROWS) return launch<T, S, D, PAGED, MASKED>(a, stream);
+cudaError_t by_rows(const Args& a, int body, int rows, cudaStream_t stream) {
+  if (body == kBodyRows) {
+    if (rows == 1) return launch_rows<T, S, D, 1, PAGED, MASKED>(a, stream);
+    if (rows == 2) return launch_rows<T, S, D, 2, PAGED, MASKED>(a, stream);
+    if (rows == 4) return launch_rows<T, S, D, 4, PAGED, MASKED>(a, stream);
+    if (rows == 8) return launch_rows<T, S, D, 8, PAGED, MASKED>(a, stream);
+    return cudaErrorInvalidValue;
+  }
+  if constexpr (std::is_same<T, float>::value) {
+    if (body == kBodyTiled && rows == ROWS)
+      return launch<T, S, D, PAGED, MASKED>(a, stream);
+  } else {
+    if (body == kBodyMma) {
+      if (rows == 16) return launch_mma<S, D, PAGED, MASKED, true>(a, stream);
+      if (rows == MMA_ROWS)
+        return launch_mma<S, D, PAGED, MASKED, false>(a, stream);
+    }
+  }
   return cudaErrorInvalidValue;
 }
 
 template <typename T, typename S, bool PAGED, bool MASKED>
-cudaError_t by_dim(const Args& a, int D, int rows, cudaStream_t stream) {
-  if (D == 64) return by_rows<T, S, 64, PAGED, MASKED>(a, rows, stream);
-  if (D == 128) return by_rows<T, S, 128, PAGED, MASKED>(a, rows, stream);
+cudaError_t by_dim(const Args& a, int D, int body, int rows,
+                   cudaStream_t stream) {
+  if (D == 64) return by_rows<T, S, 64, PAGED, MASKED>(a, body, rows, stream);
+  if (D == 128)
+    return by_rows<T, S, 128, PAGED, MASKED>(a, body, rows, stream);
   return cudaErrorInvalidValue;
 }
 
 // kv_code: 0 = K/V stored in T, 1 = int8, 2 = fp8 e4m3 (with scales)
 template <typename T, bool PAGED, bool MASKED>
-cudaError_t by_storage(const Args& a, int kv_code, int D, int rows,
+cudaError_t by_storage(const Args& a, int kv_code, int D, int body, int rows,
                        cudaStream_t stream) {
-  if (kv_code == 0) return by_dim<T, T, PAGED, MASKED>(a, D, rows, stream);
+  if (kv_code == 0)
+    return by_dim<T, T, PAGED, MASKED>(a, D, body, rows, stream);
   if (a.ks == nullptr || a.vs == nullptr) return cudaErrorInvalidValue;
   if (kv_code == 1)
-    return by_dim<T, int8_t, PAGED, MASKED>(a, D, rows, stream);
+    return by_dim<T, int8_t, PAGED, MASKED>(a, D, body, rows, stream);
   if (kv_code == 2)
-    return by_dim<T, __nv_fp8_e4m3, PAGED, MASKED>(a, D, rows, stream);
+    return by_dim<T, __nv_fp8_e4m3, PAGED, MASKED>(a, D, body, rows, stream);
   return cudaErrorInvalidValue;
 }
 
 // the three layouts: contiguous, paged, paged with an ancestor mask (the
 // contiguous cache takes no mask, as the TPU kernel's)
 template <typename T>
-cudaError_t by_layout(const Args& a, int kv_code, int D, int rows,
+cudaError_t by_layout(const Args& a, int kv_code, int D, int body, int rows,
                       cudaStream_t stream) {
   if (a.bt == nullptr) {
     if (a.mask != nullptr) return cudaErrorInvalidValue;
-    return by_storage<T, false, false>(a, kv_code, D, rows, stream);
+    return by_storage<T, false, false>(a, kv_code, D, body, rows, stream);
   }
   if (a.mask != nullptr) {
     if (a.q_len > kMaskWords * 32) return cudaErrorInvalidValue;
-    return by_storage<T, true, true>(a, kv_code, D, rows, stream);
+    return by_storage<T, true, true>(a, kv_code, D, body, rows, stream);
   }
-  return by_storage<T, true, false>(a, kv_code, D, rows, stream);
+  return by_storage<T, true, false>(a, kv_code, D, body, rows, stream);
 }
 
 }  // namespace
@@ -828,6 +1307,8 @@ cudaError_t by_layout(const Args& a, int kv_code, int D, int rows,
 // pool shape without D).
 // mask (paged only; nullptr = causal bundle) is the [B, q_len, q_len]
 // ancestor mask as bytes, nonzero = visible, q_len <= 256.
+// body (0 rows, 1 tiled, 2 mma) and rows (its row tile) name the block
+// body; a body that is not built for q's dtype is refused.
 // o_part [B*KV, n_split, gq, D], m_part/l_part [B*KV, n_split, gq] are
 // fp32 scratch owned by the caller. Returns the cudaError_t of the
 // launches (0 = both were accepted).
@@ -835,11 +1316,12 @@ extern "C" int paddle_flash_decode(const void* q, const void* k, const void* v,
                                    const void* ks, const void* vs,
                                    const void* pos, const void* bt,
                                    const void* mask, void* o_part,
-                                   void* m_part, void* l_part, void* out, int is_bf16, int kv_code,
-                                   int B, int q_len,
+                                   void* m_part, void* l_part, void* out,
+                                   int is_bf16, int kv_code, int B, int q_len,
                                    int H, int KV, int D, int max_len, int bs,
                                    int nb, int n_split, int split_keys,
-                                   int rows, float scale, void* stream) {
+                                   int body, int rows, float scale,
+                                   void* stream) {
   Args a{q,
          k,
          v,
@@ -864,7 +1346,7 @@ extern "C" int paddle_flash_decode(const void* q, const void* k, const void* v,
          scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      is_bf16 ? by_layout<__nv_bfloat16>(a, kv_code, D, rows, st)
-              : by_layout<float>(a, kv_code, D, rows, st);
+      is_bf16 ? by_layout<__nv_bfloat16>(a, kv_code, D, body, rows, st)
+              : by_layout<float>(a, kv_code, D, body, rows, st);
   return static_cast<int>(e);
 }

@@ -17,16 +17,31 @@ beside it:
 
 Both take QUANTIZED caches too: int8 / float8_e4m3 K/V with their
 per-token-per-head f32 absmax scales (``k_scale``/``v_scale``, shaped
-like the cache without the head dimension). The kernel dequantizes each
-value where it loads it, ``q * s / bound`` rounded to q's dtype (the
-prologue of the TPU kernel's ``_decode_kernel_quant``), so only the
+like the cache without the head dimension). The kernel dequantizes
+``q * s / bound`` rounded to q's dtype (the prologue of the TPU kernel's
+``_decode_kernel_quant``): the SIMT bodies each value where they load
+it, the tensor-core body each K/V tile once in shared memory. Only the
 narrow bytes cross device memory.
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; there is no fallback. Each
 wrapper counts its launches in ``LAUNCHES``, quantized launches under
 their own ``*_quant`` keys and tree bundles under ``*_tree`` /
-``*_tree_quant``.
+``*_tree_quant``; ``BODY_LAUNCHES`` splits the same launches by the
+kernel body that ran (``"<name>/<body>"``).
+
+Which body runs is a pure function of the bundle (``bundle_body``):
+
+| q dtype | bundle | body |
+|---|---|---|
+| bf16 | q_len 1 (the decode step), at most 8 rows | ``rows``: four warps stream the keys |
+| bf16 | q_len >= 2 (chunks, verify bundles, draft levels); q_len 1 over more than 8 rows | ``mma``: bf16 tensor cores |
+| fp32 | at most 8 rows | ``rows`` |
+| fp32 | more rows | ``tiled``: fp32 FMA (the card-against-CPU parity path) |
+
+The mask never enters the choice, so a causal ancestor mask and the
+maskless launch take the same body. ``launch_plan`` adds the row tile
+and the split of the key range.
 
 ``decode_dispatch`` / ``paged_decode_dispatch`` keep the JAX package's
 gates (external mask, q_len, dtype, grad mode): a declined call runs
@@ -52,8 +67,8 @@ __all__ = ["flash_decode_attention", "flash_decode_attention_ref",
            "decode_dispatch", "paged_decode_dispatch", "MAX_DECODE_Q_LEN",
            "MAX_PAGED_Q_LEN", "MAX_SPEC_K", "spec_tree_width",
            "spec_verify_eligibility", "ancestor_visibility", "LAUNCHES",
-           "DISPATCH_HITS",
-           "DISPATCH_FALLBACKS", "reset_counters"]
+           "BODY_LAUNCHES", "DISPATCH_HITS", "DISPATCH_FALLBACKS",
+           "reset_counters", "bundle_body", "launch_plan", "MMA_ROWS"]
 
 # the contiguous kernel serves the short-query decode window; longer
 # prompts go to the plain attention (XLA in the JAX package)
@@ -69,14 +84,37 @@ MAX_SPEC_K = MAX_PAGED_Q_LEN - 1
 
 NEG_INF = -1e30
 
-# keys per shared-memory chunk inside the kernel (csrc KB)
-_KEYS_PER_CHUNK = 32
+# the block bodies of csrc/decode_attention.cu and their codes there
+_BODY_CODES = {"rows": 0, "tiled": 1, "mma": 2}
+
+# keys per unit of the split: the SIMT bodies' shared-memory chunk (csrc
+# KB) and the tensor-core body's K/V tile (csrc MMA_KEYS)
+_SPLIT_UNIT = {"rows": 32, "tiled": 32, "mma": 64}
+
+# rows per block of a wide bundle (more than 16 rows) in the mma body:
+# four warps of 16 (csrc MMA_ROWS)
+MMA_ROWS = 64
+
+# blocks per SM the split aims at, and for the mma body a cap: its fp32
+# partials (written, then read back by the merge) stay within
+# 1 / _MMA_PART_SHARE of the bf16 K/V bytes the body streams. More blocks
+# hide the MMA's latency and even out rows of unequal length. On an H100
+# (chip_smoke.py's split_sweep and profile lines, PERF.md) 8-row verify
+# bundles gain up to four splits, and a 256-token chunk at the end of a
+# 2048-token table is fastest in two (four: +4%); but splits are cut
+# from max_len, so a chunk early in its prompt reaches only the first:
+# a prefill iteration's attention took 16.2 ms with four splits and 21.1
+# with two. Eight blocks a SM and partials up to half the K/V give both
+# four.
+_FILL = {"rows": 4, "tiled": 2, "mma": 8}
+_MMA_PART_SHARE = 2
 
 LAUNCHES = {"flash_decode_attention": 0, "paged_flash_decode_attention": 0,
             "flash_decode_attention_quant": 0,
             "paged_flash_decode_attention_quant": 0,
             "paged_flash_decode_attention_tree": 0,
             "paged_flash_decode_attention_tree_quant": 0}
+BODY_LAUNCHES: Counter = Counter()
 DISPATCH_HITS: Counter = Counter()
 DISPATCH_FALLBACKS: Counter = Counter()
 
@@ -85,8 +123,58 @@ def reset_counters() -> None:
     """Zero the launch counts and the dispatch hit/fallback counters."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    BODY_LAUNCHES.clear()
     DISPATCH_HITS.clear()
     DISPATCH_FALLBACKS.clear()
+
+
+def bundle_body(q_len: int, group: int, dtype) -> str:
+    """The kernel body a bundle of ``q_len`` query tokens per row takes,
+    with ``group`` query heads per kv head and queries of ``dtype``:
+    ``"rows"``, ``"mma"`` or ``"tiled"`` (the table in the module
+    docstring). The rows body holds at most 8 rows (q_len x group)."""
+    gq = q_len * group
+    if dtype == torch.bfloat16:
+        return "rows" if q_len == 1 and gq <= 8 else "mma"
+    if dtype == torch.float32:
+        return "rows" if gq <= 8 else "tiled"
+    raise TypeError(f"no kernel body for {dtype} queries")
+
+
+def launch_plan(q_len: int, group: int, dtype, B: int, KV: int,
+                max_len: int, sm_count: int) -> dict:
+    """The body, its row tile and the split of the key range for one
+    launch: ``body``, ``rows`` (rows per block), ``tiles`` (row tiles per
+    kv head), ``n_split`` and ``split_keys``. Splits tile [0, max_len)
+    exactly in whole units of ``_SPLIT_UNIT[body]`` keys (the last split
+    may run past max_len, none is empty). Every body aims at ``_FILL``
+    blocks per SM; the mma body keeps its fp32 partials (which the merge
+    reads back) within 1 / ``_MMA_PART_SHARE`` of the bf16 K/V bytes it
+    streams (whatever the storage)."""
+    body = bundle_body(q_len, group, dtype)
+    gq = q_len * group
+    if body == "rows":
+        rows = 1 << (gq - 1).bit_length()
+    elif body == "tiled":
+        rows = 64
+    else:
+        rows = 16 if gq <= 16 else MMA_ROWS
+    tiles = -(-gq // rows)
+    unit = _SPLIT_UNIT[body]
+    n_chunks = -(-max_len // unit)
+    base = B * KV * tiles
+    if body == "mma":
+        # partial bytes n * gq * d * 4 against K/V bytes max_len * 2 * d * 2
+        cap = max(1, max_len // (_MMA_PART_SHARE * gq))
+        want = max(1, min(_FILL[body] * sm_count // base, cap))
+        per = -(-n_chunks // want)      # at most `want` splits
+    else:
+        want = max(1, -(-_FILL[body] * sm_count // base))
+        per = max(1, n_chunks // want)
+        per = pick_block(n_chunks, 1 << (per.bit_length() - 1))
+    n_split = -(-n_chunks // per)
+    return {"body": body, "rows": rows, "tiles": tiles, "n_split": n_split,
+            "split_keys": per * unit}
 
 
 def _decline_reason(q_len: int, limit: int, has_mask: bool, dtype):
@@ -344,8 +432,8 @@ def _check_mask(ancestor_mask, B: int, q_len: int, device):
 
 def _launch(name: str, q, k, v, ks, vs, pos, bt, max_len: int, bs: int,
             nb: int, scale: float, mask=None):
-    """Validate, size the split, allocate partials and launch the CUDA
-    kernel pair (partials + merge) on the current stream."""
+    """Validate, plan (``launch_plan``), allocate the partials and launch
+    the CUDA body and its merge on the current stream."""
     B, q_len, H, d = q.shape
     KV = k.shape[2]
     group = _check_heads(q, KV)
@@ -366,21 +454,10 @@ def _launch(name: str, q, k, v, ks, vs, pos, bt, max_len: int, bs: int,
     if mask is not None and (bt is None or q_len > MAX_PAGED_Q_LEN):
         raise ValueError(f"{name}: an ancestor mask needs a paged pool and "
                          f"q_len <= {MAX_PAGED_Q_LEN}, got q_len {q_len}")
+    plan = launch_plan(q_len, group, q.dtype, B, KV, max_len,
+                       _sm_count(q.device))
+    n_split = plan["n_split"]
     gq = q_len * group
-    if gq <= 8:
-        # small bundle (decode): one block streams keys through all warps
-        rows, tiles, fill = 1 << (gq - 1).bit_length(), 1, 4
-    else:
-        rows = 64
-        tiles, fill = -(-gq // rows), 2
-    # enough (split, tile, row, kv head) blocks to fill every SM `fill`
-    # times; splits tile the key range exactly (power-of-two chunk counts)
-    n_chunks = -(-max_len // _KEYS_PER_CHUNK)
-    want_splits = max(1, -(-fill * _sm_count(q.device) // (B * KV * tiles)))
-    per = max(1, n_chunks // want_splits)
-    per = pick_block(n_chunks, 1 << (per.bit_length() - 1))
-    n_split = -(-n_chunks // per)
-    split_keys = per * _KEYS_PER_CHUNK
     o_part = torch.empty((B * KV, n_split, gq, d), dtype=torch.float32,
                          device=q.device)
     m_part = torch.empty((B * KV, n_split, gq), dtype=torch.float32,
@@ -388,18 +465,19 @@ def _launch(name: str, q, k, v, ks, vs, pos, bt, max_len: int, bs: int,
     l_part = torch.empty_like(m_part)
     out = torch.empty_like(q)
     lib = load_library("decode_attention.cu")
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     rc = lib.paddle_flash_decode(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        ks.data_ptr() if ks is not None else None,
-        vs.data_ptr() if vs is not None else None, pos.data_ptr(),
-        bt.data_ptr() if bt is not None else None,
-        mask.data_ptr() if mask is not None else None, o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-        out.data_ptr(), int(q.dtype == torch.bfloat16), kv_code, B, q_len,
-        H, KV, d, max_len, bs, nb, n_split, split_keys, rows, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs),
+        pos.data_ptr(), ptr(bt), ptr(mask), o_part.data_ptr(),
+        m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16),
+        kv_code, B, q_len, H, KV, d, max_len, bs, nb, n_split,
+        plan["split_keys"], _BODY_CODES[plan["body"]], plan["rows"],
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
     LAUNCHES[name] += 1
+    BODY_LAUNCHES[f"{name}/{plan['body']}"] += 1
     return out
 
 

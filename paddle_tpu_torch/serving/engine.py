@@ -298,6 +298,19 @@ class ServingEngine:
         self._accept_hist = [0] * (self._spec_k + 1)
 
     # -- the three device programs --------------------------------------------
+    def _padded_table(self, bt, width: int):
+        """The block tables ``bt`` [B, nb] widened by dump-block (block 0)
+        columns for a bundle of ``width`` tokens. The bundle is always
+        launched at full width, and the paged kernel takes a row's length
+        as min(pos + width, table span): without the columns a bundle
+        whose padded end passes max_len (a final prefill chunk, a verify
+        bundle near the slot's end) would sit at shifted positions. Pad
+        tokens write to the dump block and no live row attends them, so
+        nothing else changes."""
+        pad = -(-(width - 1) // self.config.block_size)
+        return np.concatenate(
+            [bt, np.zeros((bt.shape[0], pad), np.int32)], axis=1)
+
     def _chunk(self, bt_row, ids, pos0: int, valid: int, slot: int,
                is_last: bool, last_idx: int) -> Optional[int]:
         """ONE fixed-shape prefill chunk: forward ``ids`` [1, C] at
@@ -587,7 +600,8 @@ class ServingEngine:
         ids = np.full((1, C), self.config.pad_token_id, np.int64)
         ids[0, :end - start] = job.tokens[start:end]
         tok0 = self._chunk(
-            torch.from_numpy(self._bt[slot:slot + 1]).to(self.device),
+            torch.from_numpy(self._padded_table(self._bt[slot:slot + 1], C))
+            .to(self.device),
             torch.from_numpy(ids).to(self.device), start, end - start, slot,
             is_last, job.total - 1 - start)
         job.done = end
@@ -806,15 +820,8 @@ class ServingEngine:
             spec_valid[i] = self._row_spec_len(i)
         tree = self._spec_tree is not None
         width = int(self._tree["nodes"]) if tree else self._spec_k + 1
-        # the bundle is always launched at full width, and the kernel
-        # takes a row's length as min(pos + width, table span): dump-block
-        # columns past max_len keep a bundle near the slot's end at its
-        # true positions (nodes past a row's live width write to the dump
-        # block, and no live node attends them)
-        pad = -(-(width - 1) // self.config.block_size)
-        bt_step = np.concatenate([bt_step, np.zeros((B, pad), np.int32)],
-                                 axis=1)
-        bt = torch.from_numpy(bt_step).to(self.device)
+        bt = torch.from_numpy(self._padded_table(bt_step, width)) \
+            .to(self.device)
         sv = torch.from_numpy(spec_valid).to(self.device)
         with torch.no_grad():
             if (spec_valid > 1).any():

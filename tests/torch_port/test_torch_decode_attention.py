@@ -174,3 +174,117 @@ def test_quant_dispatch_labels():
                                        "llama_paged_quant": 1}
     assert dict(tda.DISPATCH_FALLBACKS) == {"quant_q_len": 1,
                                             "paged_quant_external_mask": 1}
+
+
+# -- the kernel body and launch plan (pure functions; no card needed) -------
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("q_len,group,dtype,body", [
+    (1, 1, BF16, "rows"), (1, 4, BF16, "rows"), (1, 8, BF16, "rows"),
+    (1, 16, BF16, "mma"),           # more rows than the rows body holds
+    (2, 1, BF16, "mma"), (5, 1, BF16, "mma"), (7, 4, BF16, "mma"),
+    (29, 1, BF16, "mma"), (256, 1, BF16, "mma"), (256, 8, BF16, "mma"),
+    (1, 1, F32, "rows"), (8, 1, F32, "rows"), (2, 4, F32, "rows"),
+    (9, 1, F32, "tiled"), (29, 1, F32, "tiled"), (256, 4, F32, "tiled")])
+def test_bundle_body_routing(q_len, group, dtype, body):
+    """The decode step stays on the rows body, every bf16 bundle of
+    q_len >= 2 goes to the tensor cores, and fp32 keeps the SIMT
+    bodies."""
+    assert tda.bundle_body(q_len, group, dtype) == body
+
+
+def test_bundle_body_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="no kernel body"):
+        tda.bundle_body(4, 1, torch.float16)
+
+
+# (q_len, group, dtype, B, KV, max_len)
+PLAN_CASES = [
+    (1, 1, BF16, 8, 32, 2048), (1, 4, BF16, 8, 8, 2048),
+    (256, 1, BF16, 1, 32, 2048), (256, 4, BF16, 1, 8, 2048),
+    (29, 1, BF16, 8, 32, 2048), (7, 1, BF16, 8, 32, 2048),
+    (5, 1, BF16, 8, 32, 2048), (16, 1, BF16, 3, 2, 272),
+    (17, 4, BF16, 3, 2, 272), (200, 8, BF16, 3, 2, 272),
+    (48, 1, F32, 1, 4, 64), (256, 1, F32, 1, 32, 2048),
+    (1, 1, F32, 8, 32, 2000), (33, 4, BF16, 2, 2, 1000)]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_launch_plan_splits_tile_the_key_range(case):
+    """Splits cover [0, max_len) exactly in whole units, none empty; the
+    row tile holds the bundle; the mma body's fp32 partials stay within
+    their share of the K/V bytes whenever it splits."""
+    q_len, group, dtype, B, KV, max_len = case
+    p = tda.launch_plan(q_len, group, dtype, B, KV, max_len, 132)
+    gq = q_len * group
+    unit = 64 if p["body"] == "mma" else 32
+    assert p["split_keys"] % unit == 0
+    assert p["n_split"] * p["split_keys"] >= max_len
+    assert (p["n_split"] - 1) * p["split_keys"] < max_len
+    assert p["tiles"] * p["rows"] >= gq > (p["tiles"] - 1) * p["rows"]
+    if p["body"] == "mma":
+        assert p["rows"] == (16 if gq <= 16 else tda.MMA_ROWS)
+        if p["n_split"] > 1:   # partials against the bf16 K/V, per d
+            assert p["n_split"] * gq * 4 \
+                <= max_len * 2 * 2 / tda._MMA_PART_SHARE
+    elif p["body"] == "rows":
+        assert p["rows"] >= gq and p["rows"] in (1, 2, 4, 8)
+
+
+def test_launch_plan_at_the_serving_shapes():
+    """Llama-2-7B's shapes on 132 SMs: the decode step keeps its split
+    (four 512-key splits on the rows body); a 256-token chunk takes four
+    64-row tiles on the tensor cores in four splits (its partials half
+    of its K/V), the 8-row verify bundles four splits of one tile; on a
+    card with a quarter of the SMs a bundle runs in one."""
+    decode = tda.launch_plan(1, 1, BF16, 8, 32, 2048, 132)
+    assert decode == {"body": "rows", "rows": 1, "tiles": 1, "n_split": 4,
+                      "split_keys": 512}
+    plan = {q_len: tda.launch_plan(q_len, 1, BF16, B, 32, 2048, 132)
+            for q_len, B in ((256, 1), (29, 8), (7, 8), (5, 8))}
+    assert {k: (p["body"], p["rows"], p["tiles"], p["n_split"])
+            for k, p in plan.items()} == {
+        256: ("mma", 64, 4, 4), 29: ("mma", 64, 1, 4), 7: ("mma", 16, 1, 4),
+        5: ("mma", 16, 1, 4)}
+    assert tda.launch_plan(7, 1, BF16, 8, 32, 2048, 32)["n_split"] == 1
+    chunk32 = tda.launch_plan(256, 1, F32, 1, 32, 2048, 132)
+    assert chunk32["body"] == "tiled" and chunk32["rows"] == 64
+
+
+def _rn32(v64, rounded=False):
+    """float64 values rounded to float32. ``rounded``: the float64 values
+    were themselves rounded, so none may sit on a float32 midpoint (where
+    rounding twice could differ from rounding the exact value once)."""
+    out = v64.astype(np.float32)
+    if rounded:
+        lo = np.nextafter(out, np.float32(-np.inf)).astype(np.float64)
+        hi = np.nextafter(out, np.float32(np.inf)).astype(np.float64)
+        o = out.astype(np.float64)
+        assert not ((v64 == (o + lo) / 2) | (v64 == (o + hi) / 2)).any()
+    return out
+
+
+@pytest.mark.parametrize("bound", [127.0, 448.0])
+def test_div_bound_emulated_is_correctly_rounded(bound):
+    """The tensor-core body's dequant divides by the absmax bound without
+    a division (``csrc/div_bound.cuh``): q0 = RN(x * r) with r = RN(1 /
+    bound), then RN(q0 + r * RN(x - q0 * bound)), both corrections fused.
+    Emulated in float64 (each product and the residual are exact there;
+    a rounded sum never lands on a float32 midpoint) over
+    every float32 x in [1, 2), it equals RN(x / bound). A power-of-two
+    scale of x scales every step exactly, so this covers every binade
+    whose intermediates stay normal; the card checks the compiled code."""
+    x = (np.uint32(0x3F800000) | np.arange(1 << 23, dtype=np.uint32)) \
+        .view(np.float32).astype(np.float64)
+    r = np.float64(np.float32(1.0) / np.float32(bound))
+    q0 = _rn32(x * r).astype(np.float64)               # exact in float64
+    e = _rn32(x - q0 * bound).astype(np.float64)       # exact in float64
+    got = _rn32(q0 + e * r, rounded=True)
+    want = _rn32(x / bound, rounded=True)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    # exact_scale's range: every nonzero |q| * s of int8 (1..127) and fp8
+    # (2^-9..448) stays inside [2^-90, 2^100] for s in [2^-80, 2^90]
+    assert 2.0 ** -9 * 2.0 ** -80 >= 2.0 ** -90
+    assert 448 * 2.0 ** 90 <= 2.0 ** 100

@@ -1,6 +1,6 @@
-"""The CUDA kernels (flash decode K4-K8, flash attention K1-K3, the
-quantized matmul K9 and the fused convs K10/K11) against their plain
-PyTorch versions, on a GPU. Skipped where CUDA is absent; on a GPU machine (which has no
+"""The CUDA kernels (flash decode K4-K8 and its exact division, flash
+attention K1-K3, the quantized matmul K9 and the fused convs K10/K11)
+against their plain PyTorch versions, on a GPU. Skipped where CUDA is absent; on a GPU machine (which has no
 jax) run this file alone:
 
     python -m pytest --noconftest tests/torch_port/test_torch_kernels_cuda.py
@@ -388,3 +388,177 @@ def test_fused_conv_grads_on_the_card_match_the_cpu(shape, k, kh,
     for a, b in zip(res["cuda"], res["cpu"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
+
+
+# ---------------------------------------------------------------------------
+# flash_decode_mma: every bf16 bundle of q_len >= 2 on the tensor cores
+# ---------------------------------------------------------------------------
+
+def _bundle_case(rng, q_len, group, d, fmt, B=3, nb=17, bs=16):
+    """A paged bundle over a bf16 or int8/fp8 pool: row 0 ends at the
+    table's end (full to max_len), row 1 sits at a random position, row
+    2 is a dead slot (zeroed table, pos 0)."""
+    KV, N = 2, B * nb + 2
+    max_len = nb * bs
+    q = _cuda(rng, (B, q_len, KV * group, d), torch.bfloat16)
+    if fmt == "bf16":
+        kp = _cuda(rng, (N, bs, KV, d), torch.bfloat16)
+        vp = _cuda(rng, (N, bs, KV, d), torch.bfloat16)
+        scales = {}
+    else:
+        kp, ks = _quantized(_cuda(rng, (N, bs, KV, d), torch.float32), fmt)
+        vp, vs = _quantized(_cuda(rng, (N, bs, KV, d), torch.float32), fmt)
+        scales = dict(k_scale=ks, v_scale=vs)
+    bt_np = (rng.permutation(N - 1)[:B * nb] + 1).reshape(B, nb)
+    bt_np[2] = 0
+    bt = torch.tensor(bt_np, dtype=torch.int32, device="cuda")
+    pos = torch.tensor([max_len - q_len, rng.randint(0, max_len - q_len + 1),
+                        0], dtype=torch.int32, device="cuda")
+    return q, kp, vp, bt, pos, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("q_len", [2, 5, 7, 16, 17, 29, 33, 200, 256])
+def test_mma_body_matches_plain(q_len, group, d, fmt):
+    """The tensor-core body (small tiles up to 16 rows, wide tiles past
+    them, the 64- and 128-row edges) over paged bf16/int8/fp8 pools
+    against the plain version, and the contiguous cache (K4/K5) at the
+    same bundle."""
+    require_cuda()
+    rng = np.random.RandomState(500 + q_len * 7 + group + d + len(fmt))
+    q, kp, vp, bt, pos, scales = _bundle_case(rng, q_len, group, d, fmt)
+    tda.reset_counters()
+    got = tda.paged_flash_decode_attention(q, kp, vp, bt, pos, **scales)
+    torch.cuda.synchronize()
+    name = "paged_flash_decode_attention" + ("_quant" if scales else "")
+    assert dict(tda.BODY_LAUNCHES) == {f"{name}/mma": 1}
+    want = tda.paged_flash_decode_attention_ref(q, kp, vp, bt, pos,
+                                                **scales)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+    if q_len <= 33 and group == 4:
+        # the same bundle over the rows' caches laid out contiguously
+        kc, vc = tda._take_blocks(kp, bt), tda._take_blocks(vp, bt)
+        cs = {k: tda._take_blocks(s, bt) for k, s in scales.items()}
+        tda.reset_counters()
+        got = tda.flash_decode_attention(q, kc.contiguous(), vc.contiguous(),
+                                         pos, **{k: s.contiguous()
+                                                 for k, s in cs.items()})
+        torch.cuda.synchronize()
+        cname = "flash_decode_attention" + ("_quant" if scales else "")
+        assert dict(tda.BODY_LAUNCHES) == {f"{cname}/mma": 1}
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=0)
+
+
+def _random_ancestors(rng, B, w):
+    """A random [B, w, w] mask: each node sees itself and a random subset
+    of the others (not a tree: any pattern is legal)."""
+    m = rng.rand(B, w, w) < 0.4
+    m[:, np.arange(w), np.arange(w)] = True
+    return torch.from_numpy(m).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind,group", [("[4,2,2]", 1), ("[4,2,2]", 4),
+                                        ("random 40", 1), ("random 40", 4),
+                                        ("random 9", 8)])
+def test_mma_body_ancestor_masks(kind, group, d, fmt):
+    """K8 through the tensor-core body: the [4, 2, 2] tree and random
+    ancestor masks (two mask words at 40 nodes) against the plain
+    version."""
+    require_cuda()
+    rng = np.random.RandomState(600 + group + d + len(kind) + len(fmt))
+    if kind.startswith("random"):
+        mask = _random_ancestors(rng, 3, int(kind.split()[1]))
+    else:
+        mask = _tree_mask([4, 2, 2], 3)
+    w = mask.shape[1]
+    q, kp, vp, bt, pos, scales = _bundle_case(rng, w, group, d, fmt)
+    tda.reset_counters()
+    got = tda.paged_flash_decode_attention(q, kp, vp, bt, pos,
+                                           ancestor_mask=mask, **scales)
+    torch.cuda.synchronize()
+    name = "paged_flash_decode_attention_tree" + ("_quant" if scales else "")
+    assert dict(tda.BODY_LAUNCHES) == {f"{name}/mma": 1}
+    want = tda.paged_flash_decode_attention_ref(q, kp, vp, bt, pos,
+                                                ancestor_mask=mask, **scales)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("q_len", [2, 5, 7, 17, 29, 256])
+def test_mma_causal_mask_is_bitwise_default(q_len, group, fmt):
+    """A causal ancestor mask through the tensor-core body gives the
+    maskless output bit for bit: the masked launch scans keys past the
+    causal edge, and they must leave m, l and acc unchanged."""
+    require_cuda()
+    rng = np.random.RandomState(700 + q_len + group)
+    q, kp, vp, bt, pos, scales = _bundle_case(rng, q_len, group, 128, fmt)
+    causal = torch.ones(q_len, q_len, dtype=torch.bool,
+                        device="cuda").tril()[None].expand(3, -1, -1)
+    got = tda.paged_flash_decode_attention(q, kp, vp, bt, pos,
+                                           ancestor_mask=causal, **scales)
+    want = tda.paged_flash_decode_attention(q, kp, vp, bt, pos, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+_DIV_CHECK = r"""
+#include "div_bound.cuh"
+// every float32 bit pattern where the dequant uses div_bound (x = 0 or
+// |x| in [2^-90, 2^100]) against the IEEE division; counts mismatches
+template <typename S>
+__global__ void check(unsigned long long* bad, unsigned long long base) {
+  const unsigned long long i =
+      base + blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x;
+  const float x = __uint_as_float((unsigned)i);
+  const float ax = fabsf(x);
+  if (!(ax == 0.f || (ax >= 0x1p-90f && ax <= 0x1p100f))) return;
+  const float y = std::is_same<S, int8_t>::value ? 127.f : 448.f;
+  if (__float_as_uint(div_bound<S>(x)) != __float_as_uint(__fdiv_rn(x, y)))
+    atomicAdd(bad, 1ull);
+}
+extern "C" int run(int fp8, unsigned long long* host) {
+  unsigned long long* d;
+  cudaMalloc(&d, sizeof(unsigned long long));
+  cudaMemset(d, 0, sizeof(unsigned long long));
+  for (unsigned long long base = 0; base < (1ull << 32); base += 1ull << 30) {
+    if (fp8) check<__nv_fp8_e4m3><<<(1u << 30) / 256, 256>>>(d, base);
+    else check<int8_t><<<(1u << 30) / 256, 256>>>(d, base);
+  }
+  cudaMemcpy(host, d, sizeof(unsigned long long), cudaMemcpyDeviceToHost);
+  cudaFree(d);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+@pytest.mark.cuda
+def test_div_bound_matches_ieee_division_everywhere(tmp_path):
+    """``csrc/div_bound.cuh``, the tensor-core body's division by 127 and
+    448, compiled for the card and run over all 2^32 float32 inputs of
+    its range: bit for bit the IEEE division."""
+    import ctypes
+    import subprocess
+
+    from paddle_tpu_torch.kernels import _build
+
+    require_cuda()
+    src, lib = tmp_path / "div_check.cu", tmp_path / "libdiv_check.so"
+    src.write_text(_DIV_CHECK)
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-I", _build._CSRC, "-o", str(lib), str(src)], check=True)
+    fn = ctypes.CDLL(str(lib)).run
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    for fp8 in (0, 1):
+        bad = ctypes.c_ulonglong(0)
+        assert fn(fp8, ctypes.addressof(bad)) == 0
+        assert bad.value == 0, ("fp8" if fp8 else "int8", bad.value)

@@ -76,3 +76,54 @@ def test_engines_and_generate_agree_token_for_token():
     for p, n, got in zip(prompts, new, outs["torch"]):
         ref = tm.generate(p[None], max_new_tokens=n)[0, len(p):].tolist()
         assert got == ref
+
+
+# A final prefill chunk whose padded end passes max_len (56 tokens in
+# chunks of 48 against max_len 64): the chunk's rows must sit at their
+# true positions. max_position_embeddings covers max_len + prefill_chunk,
+# so the JAX engine's own rope is exact there and serves as the oracle.
+_EDGE_KW = dict(max_slots=1, max_len=64, block_size=16, prefill_chunk=48,
+                num_blocks=10)
+
+
+def test_last_chunk_past_max_len_keeps_its_positions():
+    jm, tm, cfg = tiny_pair(max_position_embeddings=256)
+    prompt = np.random.RandomState(3).randint(1, cfg.vocab_size, 56)
+    outs = {}
+    for name, eng in (("jax", jserving.ServingEngine(jm, **_EDGE_KW)),
+                      ("torch", tserving.ServingEngine(tm, device="cpu",
+                                                       **_EDGE_KW))):
+        req = eng.submit(prompt, max_new_tokens=6)
+        eng.run_until_idle(max_steps=200)
+        assert req.status == "completed", name
+        outs[name] = list(req.output_tokens)
+    ref = tm.generate(prompt[None], max_new_tokens=6)[0, 56:].tolist()
+    assert outs["torch"] == outs["jax"] == ref == [230, 174, 44, 152, 8, 214]
+
+
+def test_prefix_hit_moves_the_last_chunk_off_the_grid():
+    """The second prompt (42 tokens) fits one on-grid chunk, but it
+    shares two full blocks with the first: the prefix-cache hit starts
+    its only chunk at 32, whose padded end (80) passes max_len. Port
+    engine, JAX engine and generate agree."""
+    jm, tm, cfg = tiny_pair(max_position_embeddings=256)
+    rng = np.random.RandomState(4)
+    first = rng.randint(1, cfg.vocab_size, 40)
+    second = np.concatenate([first[:32], rng.randint(1, cfg.vocab_size, 10)])
+    kw = dict(_EDGE_KW, num_blocks=12)
+    outs = {}
+    for name, eng in (("jax", jserving.ServingEngine(jm, **kw)),
+                      ("torch", tserving.ServingEngine(tm, device="cpu",
+                                                       **kw))):
+        reqs = []
+        for p in (first, second):
+            reqs.append(eng.submit(p, max_new_tokens=4))
+            eng.run_until_idle(max_steps=200)
+        assert all(r.status == "completed" for r in reqs), name
+        hits = eng.stats()["prefix_cache"]
+        outs[name] = ([list(r.output_tokens) for r in reqs], hits)
+    assert outs["torch"] == outs["jax"]
+    assert outs["torch"][1]["hits"] == 2
+    for p, got in zip((first, second), outs["torch"][0]):
+        assert got == tm.generate(p[None], max_new_tokens=4)[0, len(p):] \
+            .tolist()
