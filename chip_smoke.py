@@ -16,10 +16,15 @@ Phases, each printing JSON lines (and failing loudly on any check):
    16 distinct batch-256 conv shapes in bf16, each variant the path
    runs there, against their plain versions (outputs atol 2e-2 plus one
    bf16 rounding step of the value, 2^-7 of it; batch statistics 1e-4),
-   with the kernel's time, the plain version's, cuDNN's conv of the same
-   x and w (the yardstick) and the bound; then the JAX package's test
-   shapes, odd channel counts, a ragged channel step and a 1x1 image
-   under a 3x3 kernel, bf16 and fp32 (atol 1e-4). ``resnet_infer``:
+   with the kernel's time, TFLOP/s and share of the bound, the plain
+   version's time, cuDNN's conv of the same x and w (the yardstick), the
+   bound and the launch plan (body, slab or per-tap mode, tile width);
+   then the JAX package's test shapes, odd channel counts, a ragged
+   channel step and a 1x1 image under a 3x3 kernel, bf16 and fp32 (atol
+   1e-4). ``conv_summary`` (after the train step): K10 summed over a
+   forward's 46 units and K11 over a step's 46, beside cuDNN's and the
+   bound.
+   ``resnet_infer``:
    ``resnet50(num_classes=1000)`` from the port's seeded initializers,
    bf16, channels-last, space-to-depth stem, eval, 10 timed batches of
    256 x 3 x 224 x 224 under no_grad: images/s, peak memory; asserts 46
@@ -561,8 +566,9 @@ def device_window(fn, n):
     kinds = {"port_kernels": 0.0, "cublas": 0.0, "cudnn": 0.0, "other": 0.0}
     for k, t in dev:
         kind = "port_kernels" if k.startswith("void flash_") or \
-            "flash_decode" in k or "qmm_" in k or "conv_mma" in k or \
-            "conv_simt" in k else "cudnn" if any(
+            "flash_decode" in k or "qmm_" in k or any(
+                s in k for s in ("conv_tc", "conv_simt", "stats_reduce",
+                                 "bn_fold")) else "cudnn" if any(
                 s in k.lower() for s in ("cudnn", "xmma", "fprop", "dgrad",
                                          "wgrad", "convolve")) \
             else "cublas" if k.startswith(
@@ -2107,8 +2113,9 @@ def _close(got, want, dname):
 def conv_row(variant, case, n, h, w, c, k, ks, dtype, g, units=None):
     """One kernel variant against its plain version on seeded inputs,
     timed beside the plain version and the cuDNN conv of the same x and w
-    (the library yardstick); ``units``: the row's launches a pass on the
-    ResNet-50 path."""
+    (the library yardstick), with its TFLOP/s, its share of the bound and
+    the launch plan's body, mode and tile width; ``units``: the row's
+    launches a pass on the ResNet-50 path."""
     import math
 
     import torch
@@ -2146,6 +2153,7 @@ def conv_row(variant, case, n, h, w, c, k, ks, dtype, g, units=None):
         extra = 2 * k * 4 + 2 * c * (4 + isz)
     lib = lambda: TF.conv2d(x.permute(0, 3, 1, 2), wt,  # noqa
                             padding=(ks - 1) // 2)
+    plan = fc.conv_plan(n, h, w, c, k, ks, dtype == torch.bfloat16)
     with torch.no_grad():
         got = run()
         got = got if isinstance(got, tuple) else (got,)
@@ -2160,13 +2168,16 @@ def conv_row(variant, case, n, h, w, c, k, ks, dtype, g, units=None):
                                  .all()) for a, b in zip(got[1:], want[1:]))
         M = n * h * w
         bound, bound_by = conv_bound(M, c, k, ks, isz, dname, extra)
+        ms = cuda_ms(run, 20)
         row = {"phase": "conv_kernel", "name": variant, "case": case,
                "dtype": dname, "N": n, "H": h, "W": w, "C": c, "K": k,
-               "kernel": ks, "max_abs_err": err, "atol": ATOL[dname],
+               "kernel": ks, "body": plan.body, "mode": plan.mode,
+               "tn": plan.tn, "max_abs_err": err, "atol": ATOL[dname],
                "rtol": CONV_RTOL[dname], "stats_max_abs_err": stats_err,
                "ok": ok, "bound_ms": bound, "bound_by": bound_by,
-               "library": "cuDNN F.conv2d, channels_last",
-               "ms": cuda_ms(run, 20), "plain_ms": cuda_ms(plain, 3),
+               "library": "cuDNN F.conv2d, channels_last", "ms": ms,
+               "tflops": 2 * M * k * c * ks * ks / ms / 1e9,
+               "bound_share": bound / ms, "plain_ms": cuda_ms(plain, 3),
                "library_ms": cuda_ms(lib, 20)}
         if units is not None:
             row["units"] = units
@@ -2530,8 +2541,18 @@ def conv_summary(conv_rows, infer_launches, resnet_train_launches):
     """One object per K10/K11 variant: its row at the ResNet-50 shape
     where it has the most work (units x bound), and its ms, plain ms,
     library ms and bound summed over the units of one forward (K10) or
-    one train step's forward (K11) as ``per_pass``."""
+    one train step's forward (K11) as ``per_pass``; emits those sums of
+    K10 a forward and K11 a step beside cuDNN's and the bound."""
     out = []
+    passes = {}
+    for tag, what in (("K10", "forward"), ("K11", "step")):
+        path = [r for r in conv_rows if "units" in r
+                and CONV_META[r["name"]][0] == tag]
+        passes[f"{tag}_{what}"] = {
+            k: sum(r["units"] * r[k] for r in path)
+            for k in ("ms", "library_ms", "bound_ms", "plain_ms")}
+        passes[f"{tag}_{what}"]["launches"] = sum(r["units"] for r in path)
+    emit({"phase": "conv_summary", **passes})
     for name, (tag, replaces) in CONV_META.items():
         mine = [r for r in conv_rows if r["name"] == name]
         path = [r for r in mine if "units" in r]

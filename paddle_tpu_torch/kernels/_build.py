@@ -42,10 +42,15 @@ SOURCES = {
         "paddle_quant_matmul": [_P] * 4 + [_I] * 5 + [_P],
     },
     # x w scale shift ps pb out part1 part2, then (bf16, stats, relu, pre,
-    # relu_in, N, H, W, C, K, ksize, tiles)
+    # relu_in, N, H, W, C, K, ksize) and the launch plan (body, tile_rows,
+    # tn, slab, a_rows, a_stages, w_stages, smem, tiles); the statistics:
+    # part, then (tiles, K, count, span, scratch_rows), then scratch mean
+    # var; the prologue's folded BatchNorm: mean var gamma beta,
+    # (affine_bf16, C), eps, ps pb
     "fused_conv.cu": {
-        "paddle_fused_conv_tile_rows": [_I, _I],
-        "paddle_fused_conv": [_P] * 9 + [_I] * 12 + [_P],
+        "paddle_fused_conv": [_P] * 9 + [_I] * 20 + [_P],
+        "paddle_conv_stats_finish": [_P] + [_I] * 5 + [_P] * 4,
+        "paddle_bn_fold": [_P] * 4 + [_I] * 2 + [_F] + [_P] * 3,
     },
     # pointers, then an int64 stride array, then (bf16, B, S, H, D, causal)
     "flash_attention.cu": {

@@ -35,19 +35,24 @@ JAX references round the conv to bf16 first, while its TPU kernels, like
 these, do not. A wrapper takes the plain version only for CPU tensors;
 for CUDA tensors it launches the kernel of ``csrc/fused_conv.cu`` or
 raises, and counts the launch in ``LAUNCHES`` (K10 with and without its
-ReLU, K11 with and without its prologue).
+ReLU, K11 with and without its prologue). ``conv_plan`` gives each
+launch's geometry (the tensor-core body for bf16 with C % 8 == 0, the
+plain-FMA body otherwise); the C side checks it and refuses a plan it
+cannot run.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from ._build import load_library
 
-__all__ = ["conv_qualifies", "fused_conv_bn_eval", "conv_stats",
-           "conv_stats_pre", "bn_apply", "fused_conv_bn_train", "LAUNCHES",
-           "reset_counters"]
+__all__ = ["conv_qualifies", "conv_plan", "ConvPlan", "fused_conv_bn_eval",
+           "conv_stats", "conv_stats_pre", "bn_apply", "fused_conv_bn_train",
+           "LAUNCHES", "reset_counters"]
 
 LAUNCHES = {"fused_conv_bn_eval": 0, "fused_conv_bn_eval_relu": 0,
             "conv_stats": 0, "conv_stats_pre": 0}
@@ -95,12 +100,6 @@ def _moments_ref(co):
     return m, v
 
 
-def _stats_from_partials(x, s1, s2):
-    cnt = x.shape[0] * x.shape[1] * x.shape[2]
-    m = s1 / cnt
-    return m, torch.clamp(s2 / cnt - m * m, min=0.0)
-
-
 def _fold_bn(m, v, gamma, beta, eps):
     """BatchNorm as a per-channel f32 scale and shift."""
     scale = gamma.float() * torch.rsqrt(v.float() + eps)
@@ -131,9 +130,76 @@ def _conv_stats_pre_ref(co_p, m_p, v_p, gp, bp, w, relu_in, eps_p):
 
 
 # ---------------------------------------------------------------------------
-# the kernel launch (CUDA tensors only)
+# the launch plan
 # ---------------------------------------------------------------------------
 
+# csrc/fused_conv.cu's geometry: the tensor-core body's tile rows, shared
+# bytes a block may take on sm_90 and rows of one TMA box; the plain-FMA
+# body's tile
+_TM, _SMEM_MAX, _MAX_BOX = 128, 232448, 256
+_SIMT_TILE = 64
+_STATS_SPAN = 64    # tiles a block of the statistics' first pass sums
+# (x ring, weight ring) depths, the deepest that fits first
+_STAGES = ((4, 4), (3, 4), (2, 4), (3, 3), (2, 3), (2, 2))
+
+
+class ConvPlan(NamedTuple):
+    """How one launch of csrc/fused_conv.cu covers its conv."""
+    body: str        # "tc" (TMA ring, wgmma) or "simt" (plain fp32 FMA)
+    tile_rows: int   # output rows a tile (and a statistics partial)
+    tn: int          # output channels a tile
+    mode: str        # "slab": one halo slab a channel step; "tap": a window
+    a_rows: int      # rows of one staged x block (the TMA box; tc only)
+    a_stages: int    # depth of the x ring (tc only)
+    w_stages: int    # depth of the weight ring (tc only)
+    smem: int        # dynamic shared bytes (tc only)
+    grid: tuple      # work items: (column blocks, row tiles), tile-major;
+    # the tc body walks them with one persistent block per SM
+    tiles: int       # rows of the [tiles, K] statistics partials
+
+
+def _tc_smem(a_rows, a_stages, w_stages, tn):
+    """The tensor-core body's shared bytes: 1024 for alignment, the x ring
+    (stages of a_rows rounded up to 8 rows of 128 bytes), the weight ring
+    (tiles of tn rows of 128 bytes), the epilogue's bf16 tile and f32
+    partials, then 8 bytes per mbarrier."""
+    x_ring = a_stages * (-(-a_rows // 8) * 8 * 128)
+    return (1024 + x_ring + w_stages * tn * 128 + _TM * tn * 2
+            + 2 * 8 * tn * 4 + 8 * (3 * a_stages + 2 * w_stages))
+
+
+def conv_plan(n, h, w, c, k, ks, bf16=True) -> ConvPlan:
+    """The launch plan of an NHWC [n, h, w, c] conv to k channels with a
+    ks x ks kernel (3: pad 1; 1). bf16 with c % 8 == 0 takes the
+    tensor-core body: 128-row tiles; 256 output channels a tile where
+    k >= 256, 128 where k > 64, else 64; x staged 64 channels at a time as
+    one halo slab of rows [m0 - w - 1, m0 + 128 + w + 1) that every tap
+    reads shifted or, where that slab is taller than one TMA box
+    (w > 63), as one 128-row window per tap; the x and weight rings as
+    deep (4 to 2 stages each) as a block's shared memory allows. The
+    body walks the (column block, row tile) items with one persistent
+    block per SM. Everything else takes the plain-FMA body."""
+    m = n * h * w
+    if not (bf16 and c % 8 == 0):
+        tiles = -(-m // _SIMT_TILE)
+        return ConvPlan("simt", _SIMT_TILE, _SIMT_TILE, "tap", 0, 0, 0, 0,
+                        (-(-k // _SIMT_TILE), tiles), tiles)
+    tn = 256 if k >= 256 else 128 if k > 64 else 64
+    halo = w + 1 if ks == 3 else 0
+    slab_rows = _TM + 2 * halo
+    mode = "slab" if slab_rows <= _MAX_BOX else "tap"
+    a_rows = slab_rows if mode == "slab" else _TM
+    a_st, w_st = next(d for d in _STAGES
+                      if _tc_smem(a_rows, *d, tn) <= _SMEM_MAX)
+    tiles = -(-m // _TM)
+    return ConvPlan("tc", _TM, tn, mode, a_rows, a_st, w_st,
+                    _tc_smem(a_rows, a_st, w_st, tn), (-(-k // tn), tiles),
+                    tiles)
+
+
+# ---------------------------------------------------------------------------
+# the kernel launch (CUDA tensors only)
+# ---------------------------------------------------------------------------
 
 def _on_card(x, what):
     if x.device.type == "cuda":
@@ -148,7 +214,32 @@ def _f32_vec(t, n, name, dev):
             or t.device != dev:
         raise ValueError(f"fused conv: {name} must be float32 [{n}] on {dev}, "
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    return t.contiguous()
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _fold_bn_card(m, v, gamma, beta, eps):
+    """``_fold_bn`` on the card in one launch (csrc/fused_conv.cu
+    ``bn_fold``, with the same f32 roundings)."""
+    c = m.shape[0]
+    dev = m.device
+    bf16 = gamma.dtype == beta.dtype == torch.bfloat16
+    vecs = [t.contiguous() if bf16 and i >= 2 else t.float().contiguous()
+            for i, t in enumerate((m, v, gamma, beta))]
+    for name, t in zip(("mean", "var", "gamma", "beta"), vecs):
+        if tuple(t.shape) != (c,) or t.device != dev:
+            raise ValueError(f"conv_stats_pre: {name} must be [{c}] on {dev}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    ps = torch.empty(c, dtype=torch.float32, device=dev)
+    pb = torch.empty_like(ps)
+    rc = load_library("fused_conv.cu").paddle_bn_fold(
+        *(t.data_ptr() for t in vecs), int(bf16), c, float(eps),
+        ps.data_ptr(), pb.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"conv_stats_pre: fold launch failed "
+                           f"(cudaError {rc})")
+    return ps, pb
 
 
 def _launch(x, w, *, scale=None, shift=None, relu=False, pre=None):
@@ -180,11 +271,10 @@ def _launch(x, w, *, scale=None, shift=None, relu=False, pre=None):
     lib = load_library("fused_conv.cu")
     bf16 = int(x.dtype == torch.bfloat16)
     m_rows = n * h * wd
-    tile = lib.paddle_fused_conv_tile_rows(bf16, c)
-    tiles = (m_rows + tile - 1) // tile
+    plan = conv_plan(n, h, wd, c, k, kh, bool(bf16))
     if stats:
-        part1 = torch.empty((tiles, k), dtype=torch.float32, device=dev)
-        part2 = torch.empty_like(part1)
+        part = torch.empty((2, plan.tiles, k), dtype=torch.float32, device=dev)
+        part1, part2 = part[0], part[1]
         scale = shift = None
     else:
         scale = _f32_vec(scale, k, "scale", dev)
@@ -200,13 +290,15 @@ def _launch(x, w, *, scale=None, shift=None, relu=False, pre=None):
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
+    stream = torch.cuda.current_stream(dev).cuda_stream
     if m_rows:
         rc = lib.paddle_fused_conv(
             x.data_ptr(), w_t.data_ptr(), ptr(scale), ptr(shift), ptr(ps),
             ptr(pb), out.data_ptr(), ptr(part1), ptr(part2), bf16,
             int(stats), int(bool(relu)), int(pre is not None),
-            int(bool(relu_in)), n, h, wd, c, k, kh, tiles,
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(bool(relu_in)), n, h, wd, c, k, kh, int(plan.body == "tc"),
+            plan.tile_rows, plan.tn, int(plan.mode == "slab"), plan.a_rows,
+            plan.a_stages, plan.w_stages, plan.smem, plan.tiles, stream)
         if rc != 0:
             raise RuntimeError(f"fused conv: kernel launch failed "
                                f"(cudaError {rc})")
@@ -221,8 +313,19 @@ def _launch(x, w, *, scale=None, shift=None, relu=False, pre=None):
     if not m_rows:
         raise ValueError("conv_stats: the batch statistics of an empty batch "
                          "are undefined")
-    # the tiles' partials in a fixed order: the same result every run
-    m, v = _stats_from_partials(x, part1.sum(0), part2.sum(0))
+    # the tiles' partials summed in a fixed order: the same result every run
+    m = torch.empty(k, dtype=torch.float32, device=dev)
+    v = torch.empty_like(m)
+    spans = -(-plan.tiles // _STATS_SPAN)
+    rows = spans if spans > 1 else 0
+    scratch = torch.empty((2, rows, k), dtype=torch.float32, device=dev) \
+        if rows else None
+    rc = lib.paddle_conv_stats_finish(part.data_ptr(), plan.tiles, k, m_rows,
+                                      _STATS_SPAN, rows, ptr(scratch),
+                                      m.data_ptr(), v.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"conv_stats: statistics launch failed "
+                           f"(cudaError {rc})")
     return out, m, v
 
 
@@ -313,7 +416,7 @@ class _ConvStatsPreFn(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.relu_in, ctx.eps_p = relu_in, eps_p
         if _on_card(co_p, "conv_stats_pre"):
-            ps, pb = _fold_bn(m_p, v_p, gp, bp, eps_p)
+            ps, pb = _fold_bn_card(m_p, v_p, gp, bp, eps_p)
             co, m, v = _launch(co_p, w, pre=(ps, pb, relu_in))
         else:
             co, m, v = _conv_stats_pre_ref(co_p, m_p, v_p, gp, bp, w,

@@ -302,10 +302,16 @@ def test_causal_tree_mask_is_bitwise_default(q_len, group, dtype, fmt):
     assert torch.equal(got, want)
 
 
+# the JAX tests' shapes, odd C and K, a 1x1 image under a 3x3 kernel; then
+# a 56-wide 3x3 whose 128-row tiles cross image rows and images, the
+# wide-N tile (K >= 256: 3x3, and 1x1 over two column blocks) and a
+# 224-wide image (the per-tap mode)
 CONV_SHAPES = [((2, 8, 8, 16), 32, 3), ((3, 6, 5, 8), 8, 3),
                ((2, 7, 7, 32), 16, 1), ((2, 4, 4, 6), 8, 3),
                ((8, 1, 1, 64), 64, 3), ((4, 14, 14, 64), 40, 3),
-               ((2, 9, 9, 128), 13, 1)]
+               ((2, 9, 9, 128), 13, 1), ((2, 56, 56, 64), 64, 3),
+               ((3, 14, 14, 256), 256, 3), ((2, 7, 7, 512), 512, 1),
+               ((1, 4, 224, 64), 64, 3)]
 CONV_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 
@@ -317,8 +323,9 @@ CONV_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 def test_fused_conv_kernels_match_plain(variant, shape, k, kh, dtype,
                                         monkeypatch):
     """K10 (with and without its ReLU) and K11 (with and without its
-    prologue) on both bodies (tensor cores for bf16 with C % 8 == 0,
-    plain FMA otherwise), odd C and K, a 1x1 image under a 3x3 kernel.
+    prologue) on both bodies (tensor cores for bf16 with C % 8 == 0, in
+    its slab and per-tap modes and all three tile widths; plain FMA
+    otherwise), odd C and K, a 1x1 image under a 3x3 kernel.
     bf16 outputs: atol plus one rounding step of the stored value (the
     same f32 sum, summed in another order, may round one step apart);
     the batch statistics (f32) to 1e-4."""
@@ -387,6 +394,39 @@ def test_fused_conv_grads_on_the_card_match_the_cpu(shape, k, kh,
         res[dev] = [t.detach().cpu() for t in list(outs) + list(grads)]
     for a, b in zip(res["cuda"], res["cpu"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles,span,rows,ok", [
+    (5, 64, 0, True), (130, 64, 3, True), (130, 16, 9, True),
+    (130, 64, 2, False), (130, 64, 0, False), (5, 64, 1, False),
+    (5, 0, 0, False)])
+def test_conv_stats_finish_checks_its_scratch(tiles, span, rows, ok):
+    """The statistics' reduction sums the partials in spans of the
+    caller's ``span`` into the caller's ``rows`` scratch rows, and
+    refuses (cudaErrorInvalidValue) a scratch that is not
+    ceil(tiles / span) rows, or 0 where that is 1."""
+    from paddle_tpu_torch.kernels._build import load_library
+
+    require_cuda()
+    k, count = 40, tiles * 128
+    rng = np.random.RandomState(tiles + span)
+    part = torch.from_numpy(rng.rand(2, tiles, k).astype(np.float32)).cuda()
+    scratch = torch.empty((2, rows, k), dtype=torch.float32, device="cuda")
+    m = torch.empty(k, dtype=torch.float32, device="cuda")
+    v = torch.empty_like(m)
+    rc = load_library("fused_conv.cu").paddle_conv_stats_finish(
+        part.data_ptr(), tiles, k, count, span, rows,
+        scratch.data_ptr() if rows else 0, m.data_ptr(), v.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == (0 if ok else 1)
+    if ok:
+        sums = part.double().sum(1) / count
+        torch.testing.assert_close(m.double(), sums[0], atol=0, rtol=1e-5)
+        torch.testing.assert_close(
+            v.double(), (sums[1] - sums[0] ** 2).clamp_min(0),
+            atol=1e-6, rtol=1e-4)
 
 
 
