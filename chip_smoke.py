@@ -55,16 +55,21 @@ Phases, each printing JSON lines (and failing loudly on any check):
    the serving shapes, the paged ones also at q_len 16 / 17 and
    ``MMA_ROWS`` + 1 (the tensor-core body's one-tile and wide-tile
    edges); each decode row names the kernel body it took (``rows``,
-   ``mma``, ``tiled``). The flash-attention kernels K1-K3 compare out,
+   ``mma``, ``tiled``). The flash-attention kernels K1-K3 (K1's rows
+   name its body) compare out,
    lse, dq, dk and dv at ``FLASH_SHAPES`` (the training shape in bf16
    and fp32, Llama-2-7B's heads, non-causal, segment ids, s = 1000).
    The quantized kernels: K5 and K7 (flash decode over int8 / fp8 K/V
    with per-token-per-head scales, dequantized in the kernel) at the
    same serving shapes against their plain versions, with SDPA over the
    dequantized cache as the yardstick; K9 (the weight-only quantized
-   matmul) at Llama-2-7B's linear shapes for a decode step (M 8) and a
-   prefill chunk (M 256), with ``torch.matmul`` against the weight
-   dequantized beforehand as the yardstick. K8 (the paged kernels under
+   matmul) at Llama-2-7B's linear shapes for a decode step (M 8), the
+   int8 [2, 2] and [4, 2, 2] verify bundles of 8 slots (M 56, 232) and
+   prefill chunks of 128 and 256 tokens, each row naming its body
+   (``gemv``, ``wgmma`` with its ``qmm_plan``, ``simt``), with
+   ``torch.matmul`` against the weight dequantized beforehand as the
+   yardstick; ``host`` lines give the K9 wrapper's host time per call
+   (M 8 and 256, the stream held). K8 (the paged kernels under
    a draft tree's ancestor mask) over bf16 and fp32 pools and int8 /
    fp8 pools with bf16 queries, B 8, 32 heads (group 1, and one group-4
    case), max_len 2048, for a causal bundle of 5 (asserted bit-equal to
@@ -111,14 +116,16 @@ Phases, each printing JSON lines (and failing loudly on any check):
    int8 KV blocks over the same 12 requests. Checks: every request
    completes; K7 launches exactly layers x (decode steps + prefill
    chunks) and K9 exactly 225 x forwards (7 linears x 32 layers +
-   lm_head), with no fallback; ``generate(kv_format="int8")`` on two
-   prompts launches K5 once per layer per decode step. Reports tokens/s,
-   KV bytes per token and the capacity against bf16, the model's bytes,
-   peak memory, token agreement with the bf16 engine and the
-   teacher-forced agreement (bf16 activations, reported), and a
-   ``profile`` of its iterations; then the int8 speculative lane (tree
-   [2, 2], the draft converted alike: K7, K8's quantized variant and K9,
-   launch counts exact). Then fp8 weights and fp8 KV on four requests,
+   lm_head), by body exactly: 225 x prefill chunks on ``wgmma``, 225 x
+   decode steps on ``gemv``, with no fallback;
+   ``generate(kv_format="int8")`` on two prompts launches K5 once per
+   layer per decode step. Reports tokens/s, KV bytes per token and the
+   capacity against bf16, the model's bytes, peak memory, token
+   agreement with the bf16 engine and the teacher-forced agreement
+   (bf16 activations, reported), and a ``profile`` of its iterations
+   (int8 and fp8); then the int8 speculative lane (tree [2, 2], the
+   draft converted alike: K7, K8's quantized variant and K9, launch
+   counts exact). Then fp8 weights and fp8 KV on four requests,
    with the same checks. ``quant_parity``: Llama-2-7B's width
    at depth 2 in fp32, int8 weights and KV, served on the card and on
    the CPU (plain versions) from the same converted weights: greedy
@@ -144,8 +151,8 @@ Phases, each printing JSON lines (and failing loudly on any check):
    losses, ms per step, tokens/s, peak memory and an MFU estimate;
    asserts finite losses, a first loss within 0.5 of ln(32000), a last
    loss below the first, and exactly 12 launches per step of each of
-   K1, K2 and K3. ``profile``: one train step's wall and device time and
-   top kernels. ``train_parity``: the same width at depth 2, batch 2,
+   K1, K2 and K3, every K1 launch on its ``wgmma`` body. ``profile``:
+   one train step's wall and device time and top kernels. ``train_parity``: the same width at depth 2, batch 2,
    seq 256 in fp32, three steps on the card and three on the CPU (plain
    versions) from the same weights: losses agree to rtol 1e-4, every
    weight within lr and their mean difference within 1e-3 * lr.
@@ -488,6 +495,8 @@ def flash_kernel_phase(rng):
             e = max(errs[x] for x in checked[name])
             row = {"phase": "kernel", "name": name, "case": label,
                    "dtype": dname, "shape_bshd": [b, s, h, d],
+                   "body": fa.fwd_body(dtype) if name == "flash_fwd"
+                   else None,
                    "causal": causal, "segments": with_seg,
                    "max_abs_err": e,
                    "errs": {x: errs[x] for x in checked[name]},
@@ -619,6 +628,7 @@ def train_phase(kind):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(fa.LAUNCHES)
+    bodies = dict(fa.BODY_LAUNCHES)
     losses += [t.item() for t in timed]
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -634,7 +644,8 @@ def train_phase(kind):
            "mfu_estimate": tok_s * flops_tok / PEAKS["bfloat16"],
            "mfu_note": "estimate: bench.py's 6N + 12*L*s*h flops per token "
                        "against the 989 TFLOP/s bf16 data-sheet peak",
-           "kernel_launches": launches, "card": kind}
+           "kernel_launches": launches, "kernel_bodies": bodies,
+           "card": kind}
     emit(row)
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(abs(losses[0] - math.log(cfg.vocab_size)) < 0.5,
@@ -644,6 +655,9 @@ def train_phase(kind):
         check(launches[name] == L * n_steps,
               f"{name} launched {launches[name]} times, expected "
               f"{L} layers x {n_steps} steps = {L * n_steps}")
+    # every forward on the wgmma body
+    check(bodies == {"flash_fwd/wgmma": L * n_steps},
+          f"K1 bodies {bodies}, expected {L * n_steps} on the wgmma body")
     prof = device_window(lambda: step.step(ids, labels), 1)
     emit({"phase": "profile", "model": "llama_134m", "dtype": "bfloat16",
           "what": "one train step (forward, loss, backward, AdamW)",
@@ -1368,7 +1382,11 @@ def edge_phase(kind):
 QUANT_FORMATS = ("int8", "fp8")
 # Llama-2-7B's (N, K) of q/k/v/o_proj, gate/up_proj, down_proj and lm_head
 QMM_SHAPES = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
-QMM_M = (8, 256)    # a decode step of 8 slots, a 256-token prefill chunk
+# a decode step of 8 slots, the int8 [2,2] and [4,2,2] verify bundles of
+# 8 slots (7 and 29 nodes), a 128-token prefill chunk (an engine with
+# prefill_chunk=128: the wgmma body's 128-token tile), a 256-token one
+QMM_M = (8, 56, 128, 232, 256)
+HOST_CALLS = 100    # wrapper calls queued per host-time sample
 
 
 def quantize_cache(t, fmt):
@@ -1700,9 +1718,11 @@ def qmm_bound(M, N, K, isz, dname):
 
 def quant_matmul_phase():
     """K9 against its plain version at Llama-2-7B's linear shapes, a
-    decode step (M 8) and a prefill chunk (M 256), int8 and fp8, bf16 and
-    fp32. The library yardstick is ``torch.matmul`` against the weight
-    dequantized beforehand: the product K9 replaces."""
+    decode step (M 8), the verify bundles (M 56, 232) and prefill chunks
+    (M 128, 256), int8 and fp8, bf16 and fp32; each row names the body it took
+    and, for the wgmma body, its launch plan. The library yardstick is
+    ``torch.matmul`` against the weight dequantized beforehand: the
+    product K9 replaces."""
     import torch
 
     from paddle_tpu_torch.kernels import quant_matmul as qm
@@ -1742,9 +1762,13 @@ def quant_matmul_phase():
                     torch.cuda.synchronize()
                     err = (got.float() - want.float()).abs().max().item()
                     bound, bound_by = qmm_bound(M, N, K, isz, dname)
+                    body = qm.qmm_body(M, dtype)
                     row = {"phase": "kernel", "name": "quant_matmul",
                            "weight_format": fmt, "dtype": dname, "M": M,
-                           "N": N, "K": K, "max_abs_err": err,
+                           "N": N, "K": K, "body": body,
+                           "plan": qm.qmm_plan(M, N, K, qm._sm_count(dev))
+                           if body == "wgmma" else None,
+                           "max_abs_err": err,
                            "atol": ATOL[dname], "ok": err <= ATOL[dname],
                            "ms": cuda_ms(run, 50),
                            "plain_ms": cuda_ms(plain, 5),
@@ -1758,6 +1782,50 @@ def quant_matmul_phase():
                 del w, wd, ws, wds
     torch.cuda.empty_cache()
     return rows
+
+
+def qmm_host_phase():
+    """The K9 wrapper's host time per call at Llama-2-7B's four linear
+    shapes, a decode step (M 8) and a prefill chunk (M 256), bf16 x and
+    int8 weights: Python, ctypes and the launches, with the stream held
+    by a spin kernel so that the calls queue and none waits for the card.
+    An int8 prefill iteration makes 225 calls a chunk; where serving is
+    host-bound, its wall time pays this. Only the public wrapper is
+    called, so the phase times any tree's ``quant_matmul``."""
+    import statistics
+
+    import torch
+
+    from paddle_tpu_torch.kernels import quant_matmul as qm
+    from paddle_tpu_torch.quantization.intx import format_bound, pack_absmax
+
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for N, K in QMM_SHAPES:
+        wf = torch.randn(N, K, device=dev, generator=g)
+        amax = wf.abs().amax(dim=1)
+        w = pack_absmax(wf, amax[:, None], "int8")
+        scale = amax / format_bound("int8")
+        for M in (8, 256):
+            x = (torch.randn(M, K, device=dev, generator=g)
+                 * (0.5 / K ** 0.5)).to(torch.bfloat16)
+            qm.quant_matmul(x, w, scale)
+            torch.cuda.synchronize()
+            samples = []
+            for _ in range(7):
+                torch.cuda._sleep(HOLD_CYCLES * HOST_CALLS)
+                t0 = time.perf_counter()
+                for _ in range(HOST_CALLS):
+                    qm.quant_matmul(x, w, scale)
+                samples.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+                torch.cuda.synchronize()
+            emit({"phase": "host", "name": "quant_matmul",
+                  "weight_format": "int8", "dtype": "bfloat16", "M": M,
+                  "N": N, "K": K, "calls": HOST_CALLS, "samples": 7,
+                  "host_us_median": statistics.median(samples),
+                  "host_us_min": min(samples)})
+        del w, wf
+    torch.cuda.empty_cache()
 
 
 def model_bytes(model):
@@ -1803,6 +1871,7 @@ def serve_quant_phase(cfg, requests, bf16_outputs, bf16_tps, kind):
         eng, reqs, secs, launches, fallbacks, bodies = serve_engine(
             model, reqs_in, kv_format=fmt)
         qmm = dict(qm.LAUNCHES)
+        qmm_bodies = dict(qm.BODY_LAUNCHES)
         qmm_fb = dict(qm.DISPATCH_FALLBACKS)
         st = eng.stats()
         peak = torch.cuda.max_memory_allocated()
@@ -1826,6 +1895,12 @@ def serve_quant_phase(cfg, requests, bf16_outputs, bf16_tps, kind):
               f"{tag}: K9 launched {qmm['quant_matmul']} times, expected "
               f"{per_forward} x {forwards} forwards")
         check(not qmm_fb, f"{tag}: quant_matmul fallbacks {qmm_fb}")
+        # every prefill chunk's products (M 256) on the wgmma body, every
+        # decode step's (M 8) on the GEMV
+        want = {"quant_matmul/wgmma": per_forward * st["prefill_chunks"],
+                "quant_matmul/gemv": per_forward * st["steps"]}
+        check(qmm_bodies == {k: v for k, v in want.items() if v},
+              f"{tag}: K9 bodies {qmm_bodies}, expected exactly {want}")
         outputs = [list(r.output_tokens) for r in reqs]
         gen = sum(len(t) for t in outputs)
         kb = st["kv_blocks"]
@@ -1844,7 +1919,8 @@ def serve_quant_phase(cfg, requests, bf16_outputs, bf16_tps, kind):
                "model_bytes_bf16": bf16_bytes, "convert_seconds": convert_s,
                "peak_memory_gib": peak / 2**30,
                "kernel_launches": launches, "kernel_bodies": bodies,
-               "quant_matmul_launches": qmm, "fallbacks": fallbacks,
+               "quant_matmul_launches": qmm,
+               "quant_matmul_bodies": qmm_bodies, "fallbacks": fallbacks,
                "card": kind}
         del eng
         torch.cuda.empty_cache()
@@ -1860,8 +1936,8 @@ def serve_quant_phase(cfg, requests, bf16_outputs, bf16_tps, kind):
             result = {"serve": launches, "qmm": qmm,
                       "generate": row["generate"]["kernel_launches"]}
         emit(row)
+        profile_phase(model, requests, kind, kv_format=fmt)
         if fmt == "int8":
-            profile_phase(model, requests, kind, kv_format=fmt)
             convert_for_serving(draft, fmt=fmt)
             result["spec"] = spec_lane(
                 model, draft, requests, "int8 tree [2,2]",
@@ -2597,6 +2673,7 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
                     "bound_ms": main["bound_ms"],
                     "bound_by": main["bound_by"],
                     "library_ms": main["library_ms"],
+                    **({"body": main["body"]} if main["body"] else {}),
                     "ok": all(r["ok"] for r in mine)})
     meta = {
         "flash_decode_attention": {
@@ -2648,7 +2725,9 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
             "tpu_counterpart": "K9", "launches": quant_launches["qmm"],
             "source": "paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
             "main": dict(dtype="bfloat16", weight_format="int8", M=8,
-                         N=4096, K=4096)},
+                         N=4096, K=4096),
+            "prefill": dict(dtype="bfloat16", weight_format="int8", M=256,
+                            N=4096, K=4096)},
     }
     rows = rows + quant_rows + tree_rows
 
@@ -2679,6 +2758,12 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
             entry["bundle"] = {k: b[k] for k in (
                 "q_len", "B", "body", "ms", "plain_ms", "library_ms",
                 "bound_ms", "bound_by", "max_abs_err")}
+        if "prefill" in m:
+            # K9 at a 256-token prefill chunk (the wgmma body)
+            b = pick(mine, m["prefill"])
+            entry["prefill"] = {k: b[k] for k in (
+                "M", "body", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err")}
         out.append(entry)
     return out
 
@@ -2737,6 +2822,7 @@ def main(argv=None) -> int:
     rows = kernel_phase(rng)
     quant_rows = quant_attention_phase(np.random.RandomState(SEED + 4)) \
         + quant_matmul_phase()
+    qmm_host_phase()
     tree_rows = tree_kernel_phase(np.random.RandomState(SEED + 6))
     split_sweep_phase(np.random.RandomState(SEED + 8))
     flash_rows = flash_kernel_phase(rng)

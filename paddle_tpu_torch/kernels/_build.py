@@ -37,9 +37,11 @@ SOURCES = {
     "decode_attention.cu": {
         "paddle_flash_decode": [_P] * 12 + [_I] * 14 + [_F, _P],
     },
-    # x w scale out, then (bf16, fp8, M, N, K)
+    # x w scale out part, then (bf16, fp8, M, N, K) and the launch plan
+    # (body, tn, token_tiles, row_tiles, splits, per, stages, smem, items,
+    # grid)
     "quant_matmul.cu": {
-        "paddle_quant_matmul": [_P] * 4 + [_I] * 5 + [_P],
+        "paddle_quant_matmul": [_P] * 5 + [_I] * 15 + [_P],
     },
     # x w scale shift ps pb out part1 part2, then (bf16, stats, relu, pre,
     # relu_in, N, H, W, C, K, ksize) and the launch plan (body, tile_rows,

@@ -75,6 +75,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "sm90.cuh"  // TMA, mbarriers, wgmma, tensor maps
 
 namespace {
 
@@ -153,246 +154,10 @@ struct TcArgs {
   int tma_store; // 1: the tile leaves through TMA stores (K % 8 == 0)
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// wait until the phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* m,
-                                            int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* m,
-                                            int c0, int c1, int c2,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-// a 64-channel panel of the staged tile to out, and the wait until the
-// copy engine has read every committed panel (the tile may be rewritten)
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* m, int c0,
-                                             int c1, uint32_t src) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], "
-      "[%3];\n" ::"l"(reinterpret_cast<uint64_t>(m)),
-      "r"(c0), "r"(c1), "r"(src)
-      : "memory");
-}
-__device__ __forceinline__ void tma_store_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void tma_store_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
 // the consumer warpgroups' own barrier (the producer warpgroup never
 // joins)
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-// byte offset of 16-byte chunk `chunk` of row `row` in a 128-byte
-// swizzled tile (TMA's CU_TENSOR_MAP_SWIZZLE_128B, wgmma's layout 1)
-__device__ __forceinline__ uint32_t swz(int row, int chunk) {
-  return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
-}
-
-// wgmma descriptor of a K-major bf16 tile with 128-byte rows, 128-byte
-// swizzle: 8-row groups 1024 bytes apart (SBO); the leading offset is
-// unused by swizzled K-major layouts
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// d[64 x N] += a[64 x 16] (registers, the mma.sync A layout per warp) .
-// B[16 x N] (shared, descriptor); d in the mma.sync C layout per n8 chunk
-__device__ __forceinline__ void wgmma_n64(float (&d)[8][4],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_n128(float (&d)[16][4],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_n256(float (&d)[32][4],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71,"
-      "%72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87,"
-      "%88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103,"
-      "%104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119,"
-      "%120, %121, %122, %123, %124, %125, %126, %127},"
-      " {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
-        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
-        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
-        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
-        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
-        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
-        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
-        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
-        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
-        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
-        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
-        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
-        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
-        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
-        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
-        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
-        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-template <int TN>
-__device__ __forceinline__ void wgmma_tn(float (&d)[TN / 8][4],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc);
-template <>
-__device__ __forceinline__ void wgmma_tn<64>(float (&d)[8][4],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc) {
-  wgmma_n64(d, a, desc);
-}
-template <>
-__device__ __forceinline__ void wgmma_tn<128>(float (&d)[16][4],
-                                              const uint32_t (&a)[4],
-                                              uint64_t desc) {
-  wgmma_n128(d, a, desc);
-}
-template <>
-__device__ __forceinline__ void wgmma_tn<256>(float (&d)[32][4],
-                                              const uint32_t (&a)[4],
-                                              uint64_t desc) {
-  wgmma_n256(d, a, desc);
 }
 
 // With PRE: normalize one landed x stage in place. Normalizer thread nt
@@ -422,7 +187,7 @@ __device__ __forceinline__ void prologue_stage(uint8_t* buf, int a_rows,
     for (int u = 0; u < 4; ++u) {
       const int rr = r + u * STEP;
       ok[u] = rr < a_rows && (unsigned)(r0 + rr) < (unsigned)p.M;
-      if (ok[u]) v[u] = *reinterpret_cast<const uint4*>(buf + swz(rr, q));
+      if (ok[u]) v[u] = *reinterpret_cast<const uint4*>(buf + swz128(rr, q));
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -437,7 +202,7 @@ __device__ __forceinline__ void prologue_stage(uint8_t* buf, int a_rows,
         if (relu_in) y0 = fmaxf(y0, 0.f), y1 = fmaxf(y1, 0.f);
         h[i] = __floats2bfloat162_rn(y0, y1);
       }
-      *reinterpret_cast<uint4*>(buf + swz(r + u * STEP, q)) = v[u];
+      *reinterpret_cast<uint4*>(buf + swz128(r + u * STEP, q)) = v[u];
     }
   }
 }
@@ -596,7 +361,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int sr = (q.slab ? q.halo + dy * p.W + dx : 0) + lrow;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        ldsm_x4(f[kk], abuf + swz(sr, 2 * kk + lhi));
+        ldsm_x4(f[kk], abuf + swz128(sr, 2 * kk + lhi));
       const bool v0 = (unsigned)(ii[0] + dy) < (unsigned)p.H &&
                       (unsigned)(jj[0] + dx) < (unsigned)p.W;
       const bool v1 = (unsigned)(ii[1] + dy) < (unsigned)p.H &&
@@ -689,7 +454,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int ch = (nl & 63) >> 3;
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<uint32_t*>(panel + swz(ra + 8 * h, ch) + 4 * t) =
+        *reinterpret_cast<uint32_t*>(panel + swz128(ra + 8 * h, ch) + 4 * t) =
             pack2f(v[2 * h], v[2 * h + 1]);
     }
     // the staged tile made visible to the copy engine
@@ -715,7 +480,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int m = m0 + r, n = n0 + 8 * ch;
       if (m >= p.M || n >= p.K) continue;
       const uint4 v = *reinterpret_cast<const uint4*>(
-          tile_buf + (ch >> 3) * (TM * 128) + swz(r, ch & 7));
+          tile_buf + (ch >> 3) * (TM * 128) + swz128(r, ch & 7));
       bf16* dst = q.out + (long long)m * p.K + n;
       if (vec) {
         *reinterpret_cast<uint4*>(dst) = v;
@@ -908,46 +673,15 @@ __global__ void __launch_bounds__(256)
 
 bool use_tc(int is_bf16, int C) { return is_bf16 && C % 8 == 0; }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so the
-// library needs no -lcuda
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) f = nullptr;
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
 
 // A bf16 tensor map with 128-byte swizzled boxes of 64 channels (zero fill
 // outside the tensor): x as [M, C] rows, w as [taps, K, C]
 bool tensor_map(CUtensorMap* m, const void* ptr, int rank,
                 const cuuint64_t* dims, const cuuint32_t* box) {
-  const EncodeTiled enc = encoder();
-  if (!enc) return false;
   cuuint64_t strides[2], bytes = 2;
   for (int i = 1; i < rank; ++i) strides[i - 1] = bytes *= dims[i - 1];
-  const cuuint32_t es[3] = {1, 1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-             const_cast<void*>(ptr), dims, strides, box, es,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_tiled(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, ptr, dims,
+                      strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The launch plan of fused_conv.conv_plan, checked against what this

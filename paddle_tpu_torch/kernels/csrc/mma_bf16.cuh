@@ -1,5 +1,6 @@
 // bf16 tensor-core helpers shared by the attention kernels
-// (flash_attention.cu K1-K3, decode_attention.cu flash_decode_mma):
+// (flash_attention.cu K1-K3, decode_attention.cu flash_decode_mma) and
+// quant_matmul.cu:
 // mma.sync m16n8k16 with fp32 accumulate, the bf16 pair packing, and the
 // fragment loads from shared memory (plain 32-bit loads and ldmatrix).
 #pragma once

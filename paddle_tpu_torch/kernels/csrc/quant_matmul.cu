@@ -8,10 +8,10 @@
 //   block is widened to x's dtype in the prologue, one f32-accumulated
 //   product per k step, the per-channel scale applied to the f32
 //   accumulator at the last k step, the result cast to x's dtype.
-// Widening int8 (|q| <= 127) or e4m3 to bf16 is exact, and so is bf16 to
-// f32, so both bodies widen straight to f32; the kernel and its plain
-// version (kernels/quant_matmul.py quant_matmul_ref) differ only in the
-// order of the sums.
+// Widening int8 (|q| <= 128) or e4m3 to bf16 is exact, and so is bf16 to
+// f32, so every body widens exactly; the kernel and its plain version
+// (kernels/quant_matmul.py quant_matmul_ref) differ only in the order of
+// the sums.
 //
 // What bounds it, and what the design does about it:
 //   - small M (decode: one row per slot, M <= 16): weight bytes. Every
@@ -23,13 +23,25 @@
 //     operand, so the arithmetic costs nothing beside the loads; eight
 //     warps split K and meet in shared memory. fp32 x takes qmm_gemv,
 //     plain FMA against x staged in shared memory.
-//   - large M (a 256-token prefill chunk): operations. qmm_tc runs bf16
-//     tensor-core products (mma.sync m16n8k16, f32 accumulate) on 64 x 64
-//     output tiles, 64 k at a time through a three-stage cp.async ring in
-//     shared memory; the weight crosses device memory and sits in shared
-//     memory narrow, and is widened to bf16 only as fragments are built.
+//   - large M (a 256-token prefill chunk): operations, 2 x 256 per weight
+//     byte against the card's ~295 a byte in bf16. qmm_wg (bf16, M > 16)
+//     is built for the tensor cores' full rate: wgmma m64nTNk16 (TN 64,
+//     128 or 256 tokens from M), f32 accumulate, A the weight rows widened
+//     in registers straight from their narrow bytes (a byte permute, one
+//     mask and one bf16 subtract or multiply a pair: no conversion chain,
+//     once per block), B x's TMA-loaded swizzled tile. A 256-token chunk
+//     is one token tile, so each weight byte crosses device memory and L2
+//     into one block. One persistent block per SM walks the work items of
+//     quant_matmul.qmm_plan (128 weight rows x TN tokens x a K split); a
+//     producer warp keeps the TMA ring of x and narrow weight tiles in
+//     flight on mbarriers across items, so loads, widening and products
+//     overlap. K is split only where the output tiles alone would leave
+//     the SMs less than half busy (q/k/v/o and down_proj at M 256: four
+//     splits); the f32 partials are summed in split order by qmm_reduce,
+//     no atomics, so results are the same every run, and the scale is
+//     applied after the sum. The epilogue stages the scaled bf16 tile
+//     transposed (stmatrix) and writes it with TMA stores.
 //     fp32 x takes qmm_simt, a plain-FMA tiled product in real fp32.
-//   - wgmma, TMA and a deeper pipeline are later work.
 // K must be a multiple of 16 (the wrapper checks); M and N are free.
 
 #include <cuda_bf16.h>
@@ -37,9 +49,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include <atomic>
 
-using bf16 = __nv_bfloat16;
+#include "mma_bf16.cuh"  // bf16, mma16816, pack2f
+#include "sm90.cuh"      // TMA, mbarriers, wgmma, tensor maps
+
+namespace {
 
 // a narrow weight value widened (exact for int8 and e4m3)
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
@@ -149,45 +164,347 @@ __global__ void __launch_bounds__(GV_WARPS * 32)
 }
 
 // ===========================================================================
-// large M, bf16: tensor cores (mma.sync m16n8k16, f32 accumulate)
+// M > 16, bf16: persistent TMA ring, weight widened in registers, wgmma
 // ===========================================================================
+//
+// out^T[N, M] = W[N, K] . x^T[K, M], as wgmma m64nTNk16 products: A (64
+// weight rows of a consumer warpgroup) comes from registers, widened from
+// the narrow bytes; B (TN tokens) is x's 128-byte-swizzled [TN, 64] tile
+// read through a descriptor. One persistent block per SM walks the work
+// items of quant_matmul.qmm_plan: (128 weight rows, TN tokens, one K
+// split). Warp 0 of the producer warpgroup keeps TMA copies of the x tile
+// and the [128, 64] narrow weight tile (64-byte swizzle) of each 64-k step
+// in flight on mbarriers, across items. With one split the scaled bf16
+// tile is staged transposed in shared memory (stmatrix) and leaves by TMA
+// stores; with several, each item writes its f32 partial sums and
+// qmm_reduce adds them in split order, scales and rounds.
 
-constexpr int TM = 64;   // rows of x per block
-constexpr int TN = 64;   // output channels per block
+constexpr int WG_ROWS = 128;           // weight rows per item
+constexpr int WG_KSTEP = 64;           // k per ring slot
+constexpr int WG_CONSUMERS = 256;      // two consumer warpgroups
+constexpr int WG_THREADS = WG_CONSUMERS + 128;  // and the producer's
+constexpr int WG_MAX_STAGES = 8;
+constexpr int WG_MAX_SPLITS = 8;       // K splits of one output tile
+constexpr int WG_SMEM_MAX = 232448;    // per block, sm_90
+constexpr int W_TILE = WG_ROWS * WG_KSTEP;  // narrow weight bytes a slot
 
-// c[16x8] += a[16x16] . b[16x8]
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
+// Shared layout from a 1024-byte aligned base: the x ring (stages x TN
+// rows of 128 bytes), the weight ring (stages x 8 KB), the epilogue's
+// bf16 tile (two 64-column panels of TN rows), then the mbarriers
+// full[stages] and empty[stages].
+__host__ __device__ inline int wg_smem_bytes(int tn, int stages) {
+  return 1024 + stages * (tn * 128 + W_TILE) + 2 * tn * 128 + 16 * stages;
+}
+
+struct WgArgs {
+  const float* scale;
+  bf16* out;
+  float* part;  // [splits, M, N] f32 partial sums when splits > 1
+  int M, N, K;
+  int token_tiles, splits, per;  // per: 64-k steps of a split
+  int stages, items, tma_store;
+};
+
+// a - b and a * b on bf16 pairs (exact where used)
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// Two narrow weights (bytes 0-1 of w with sel = widen_sel<S>(0), bytes
+// 2-3 with widen_sel<S>(1)) as a bf16 pair, bit-equal to torch's
+// .to(torch.bfloat16), with no conversion instructions:
+//   int8: the byte's low 7 bits under bf16 128's exponent give 128 + q &
+//     127; minus 128 (256 where q < 0) leaves q. |q| <= 128: exact.
+//   e4m3: sign, exponent and mantissa shifted into bf16's fields give the
+//     value times 2^-120 (exponent bias 127 against 7); one multiply by
+//     2^120 is exact, subnormals included.
+template <typename S>
+__device__ __forceinline__ uint32_t widen_sel(int half);
+template <>
+__device__ __forceinline__ uint32_t widen_sel<int8_t>(int half) {
+  return 0x4140u + 0x0202u * half;  // bytes into halfwords' low bytes
+}
+template <>
+__device__ __forceinline__ uint32_t widen_sel<__nv_fp8_e4m3>(int half) {
+  return 0x1404u + 0x2020u * half;  // bytes into halfwords' high bytes
+}
+template <typename S>
+__device__ __forceinline__ uint32_t widen2(uint32_t w, uint32_t sel);
+template <>
+__device__ __forceinline__ uint32_t widen2<int8_t>(uint32_t w, uint32_t sel) {
+  const uint32_t r = __byte_perm(w, 0u, sel);
+  return bf16x2_sub((r & 0x007f007fu) | 0x43004300u,
+                    (r & 0x00800080u) | 0x43004300u);
+}
+template <>
+__device__ __forceinline__ uint32_t widen2<__nv_fp8_e4m3>(uint32_t w,
+                                                          uint32_t sel) {
+  const uint32_t r = __byte_perm(w, 0u, sel);
+  return bf16x2_mul(((r >> 4) & 0x07f007f0u) | (r & 0x80008000u),
+                    0x7b807b80u);  // 2^120
+}
+
+__device__ __forceinline__ void wg_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(WG_CONSUMERS) : "memory");
+}
+
+// four 8x8 bf16 tiles to shared memory, each transposed
+__device__ __forceinline__ void stsm_x4_t(uint32_t addr, uint32_t r0,
+                                          uint32_t r1, uint32_t r2,
+                                          uint32_t r3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, "
+      "%4};\n" ::"r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
 }
 
-// Fragment layouts (PTX ISA, mma.m16n8k16), with g = lane / 4, t = lane % 4:
-//   A 16x16: regs at (g, 2t), (g+8, 2t), (g, 2t+8), (g+8, 2t+8), two columns each
-//   B 16x8:  regs at (2t, g), (2t+8, g), two rows (k) each
-//   C 16x8:  c0, c1 at (g, 2t), (g, 2t+1); c2, c3 at (g+8, 2t), (g+8, 2t+1)
+template <typename S, int TN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    qmm_wg(const __grid_constant__ CUtensorMap xmap,
+           const __grid_constant__ CUtensorMap wmap,
+           const __grid_constant__ CUtensorMap omap, const WgArgs q) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  constexpr int X_TILE = TN * 128;
+  const int ST = q.stages;
+  const uint32_t sX = base, sW = base + ST * X_TILE;
+  uint8_t* const gW = gbase + ST * X_TILE;
+  const uint32_t sE = sW + ST * W_TILE;  // epilogue tile
+  const uint32_t full = sE + 2 * X_TILE, empty = full + 8 * ST;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int steps = (q.K + WG_KSTEP - 1) / WG_KSTEP;
 
-// 4 warps in 2 x 2, each a 32 x 32 corner of the 64 x 64 output tile;
-// tiles of 64 k stream through a STAGES-deep cp.async ring: x as bf16,
-// the weight as its narrow bytes, widened only when a fragment is built.
-// As in qmm_gemv_tc, a fragment's k order is permuted the same way for
-// both operands: lane t of a k16 step takes real columns 4t .. 4t+3, so
-// an A fragment pair is one 8-byte shared load and a B fragment pair is
-// one 4-byte load of narrow weights.
-constexpr int TK = 64;                // k per stage
-constexpr int STAGES = 3;
-constexpr int ALD = TK + 16;          // x row: 160 bytes, conflict-free
-constexpr int WLD = TK + 16;          // weight row: 80 bytes, conflict-free
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, WG_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(pred ? 16 : 0));
+  // item -> (weight-row tile, token tile, split); splits of one tile and
+  // the token tiles of one weight-row tile run side by side
+  auto origin = [&](int item, int& n0, int& m0, int& k0, int& k1) {
+    const int sp = item % q.splits, tile = item / q.splits;
+    n0 = tile / q.token_tiles * WG_ROWS;
+    m0 = tile % q.token_tiles * TN;
+    k0 = sp * q.per;
+    k1 = min(k0 + q.per, steps);
+  };
+
+  if (warp >= WG_CONSUMERS / 32) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    if (warp != WG_CONSUMERS / 32 || lane != 0) return;
+    // slot s and phase ph, counted across items; a slot is refilled once
+    // the consumers have released its previous use
+    int s = 0, ph = 0;
+    bool reuse = false;
+    for (int item = blockIdx.x; item < q.items; item += gridDim.x) {
+      int n0, m0, k0, k1;
+      origin(item, n0, m0, k0, k1);
+      for (int ks = k0; ks < k1; ++ks) {
+        if (reuse) mbar_wait(empty + 8 * s, ph ^ 1);
+        mbar_expect_tx(full + 8 * s, X_TILE + W_TILE);
+        tma_load_2d(sX + s * X_TILE, &xmap, ks * WG_KSTEP, m0, full + 8 * s);
+        tma_load_2d(sW + s * W_TILE, &wmap, ks * WG_KSTEP, n0, full + 8 * s);
+        if (++s == ST) s = 0, ph ^= 1, reuse = true;
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+
+  // consumers: warpgroup wg owns weight rows [64 wg, 64 wg + 64) of the
+  // item; this thread's A rows are r0 and r0 + 8, its D columns (tokens)
+  // 8j + 2t, +1
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = wg * 64 + wl * 16 + g;
+  // the word holding this lane's pair (k 2t, 2t + 1 of a k16 step, +8 for
+  // the second register) in row r of a 64-byte-swizzled weight slot:
+  // chunk kk of the row lies at chunk kk ^ ((r >> 1) & 3)
+  const uint32_t wsel = widen_sel<S>(t & 1);
+  const int wx = (g >> 1) & 3, wofs = 4 * (t >> 1);
+  int slot = 0, ph = 0;
+
+  // the A fragments of one slot: f[kk] = rows (r0, r0 + 8) x k (16 kk + 2t,
+  // + 1, 16 kk + 2t + 8, + 9), the mma A layout
+  auto widen_slot = [&](int sl, uint32_t(&f)[4][4]) {
+    const uint8_t* w = gW + sl * W_TILE;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int r = r0 + 8 * rr;
+          const uint32_t word = *reinterpret_cast<const uint32_t*>(
+              w + r * 64 + ((kk ^ wx) << 4) + 8 * h + wofs);
+          f[kk][rr + 2 * h] = widen2<S>(word, wsel);
+        }
+  };
+
+  for (int item = blockIdx.x; item < q.items; item += gridDim.x) {
+    int n0, m0, k0, k1;
+    origin(item, n0, m0, k0, k1);
+    const int nk = k1 - k0;
+    float acc[TN / 8][4];
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+    // one step: the products of slot `slot` from fragments cur, then the
+    // next slot's fragments into nxt while the tensor cores run
+    int it = 0;
+    auto step = [&](uint32_t(&cur)[4][4], uint32_t(&nxt)[4][4]) {
+      const uint32_t xt = sX + slot * X_TILE;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_tn<TN>(acc, cur[kk], desc_sw128(xt + 32 * kk));
+      wgmma_commit();
+      int ns = slot + 1, nph = ph;
+      if (ns == ST) ns = 0, nph ^= 1;
+      if (it + 1 < nk) {
+        mbar_wait(full + 8 * ns, nph);
+        widen_slot(ns, nxt);
+      }
+      wgmma_wait0();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * slot);
+      slot = ns, ph = nph, ++it;
+    };
+
+    uint32_t fa[4][4], fb[4][4];
+    mbar_wait(full + 8 * slot, ph);
+    widen_slot(slot, fa);
+    while (it < nk) {
+      step(fa, fb);
+      if (it < nk) step(fb, fa);
+    }
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[j][e])::"memory");
+
+    // acc[j][0..1]: weight row r0, tokens 8j + 2t, +1; acc[j][2..3]: row
+    // r0 + 8
+    const int na = n0 + r0, nb = na + 8;
+    if (q.splits > 1) {
+      float* dst = q.part + (long long)(k0 / q.per) * q.M * q.N;
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = m0 + 8 * j + 2 * t + e;
+          if (m >= q.M) continue;
+          if (na < q.N) dst[(long long)m * q.N + na] = acc[j][e];
+          if (nb < q.N) dst[(long long)m * q.N + nb] = acc[j][2 + e];
+        }
+      continue;
+    }
+    const float sa = na < q.N ? __ldg(q.scale + na) : 0.f;
+    const float sb = nb < q.N ? __ldg(q.scale + nb) : 0.f;
+    // the previous item's stores have read the tile
+    if (q.tma_store && tid == 0) tma_store_wait_read();
+    wg_consumers_sync();
+    // tile[m][n] (panel wg: n in [64 wg, 64 wg + 64), 128-byte swizzled
+    // rows of TN tokens): each 8x8 fragment (rows n, columns m)
+    // transposed; lane L names row L & 7 of fragment L >> 3
+    const uint32_t panel = sE + wg * X_TILE;
+    const int fi = lane & 7, fj = (lane >> 4) & 1, fh = (lane >> 3) & 1;
+#pragma unroll
+    for (int j = 0; j < TN / 8; j += 2) {
+      const int m = 8 * (j + fj) + fi;
+      stsm_x4_t(panel + swz128(m, 2 * wl + fh),
+                pack2f(acc[j][0] * sa, acc[j][1] * sa),
+                pack2f(acc[j][2] * sb, acc[j][3] * sb),
+                pack2f(acc[j + 1][0] * sa, acc[j + 1][1] * sa),
+                pack2f(acc[j + 1][2] * sb, acc[j + 1][3] * sb));
+    }
+    if (q.tma_store) {
+      // the staged tile made visible to the copy engine, which writes it
+      // (clipped at M and N) while the consumers go on to the next item
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wg_consumers_sync();
+      if (tid == 0) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          if (n0 + 64 * p < q.N)
+            tma_store_2d(&omap, n0 + 64 * p, m0, sE + p * X_TILE);
+        tma_store_commit();
+      }
+      continue;
+    }
+    // N % 8 != 0: rows of the tile element by element
+    wg_consumers_sync();
+    const uint8_t* tile = gbase + (sE - base);
+    for (int idx = tid; idx < TN * 16; idx += WG_CONSUMERS) {
+      const int r = idx >> 4, ch = idx & 15;
+      const int m = m0 + r, n = n0 + 8 * ch;
+      if (m >= q.M || n >= q.N) continue;
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          tile + (ch >> 3) * X_TILE + swz128(r, ch & 7));
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+      bf16* dst = q.out + (long long)m * q.N + n;
+      for (int i = 0; i < 8 && n + i < q.N; ++i) dst[i] = e[i];
+    }
+  }
+  if (q.tma_store && tid == 0) tma_store_wait_all();
 }
+
+// out[m, n] = bf16(sum over splits s, in order, of part[s, m, n] * scale[n]);
+// a thread per 8 consecutive outputs of a row
+__global__ void __launch_bounds__(256)
+    qmm_reduce(const float* __restrict__ part, const float* __restrict__ scale,
+               bf16* __restrict__ out, int M, int N, int splits) {
+  const int cpr = (N + 7) / 8;
+  const long long idx = blockIdx.x * 256ll + threadIdx.x;
+  if (idx >= (long long)M * cpr) return;
+  const int m = (int)(idx / cpr), n = (int)(idx % cpr) * 8;
+  const bool vec = (N & 7) == 0;
+  float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int sp = 0; sp < splits; ++sp) {
+    const float* p = part + ((long long)sp * M + m) * N + n;
+    if (vec) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+      s[0] += a.x, s[1] += a.y, s[2] += a.z, s[3] += a.w;
+      s[4] += b.x, s[5] += b.y, s[6] += b.z, s[7] += b.w;
+    } else {
+      for (int i = 0; i < 8 && n + i < N; ++i) s[i] += p[i];
+    }
+  }
+  bf16* dst = out + (long long)m * N + n;
+  if (vec) {
+    uint4 v;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = pack2f(s[2 * i] * __ldg(scale + n + 2 * i),
+                    s[2 * i + 1] * __ldg(scale + n + 2 * i + 1));
+    *reinterpret_cast<uint4*>(dst) = v;
+  } else {
+    for (int i = 0; i < 8 && n + i < N; ++i)
+      dst[i] = __float2bfloat16(s[i] * scale[n + i]);
+  }
+}
+
+// ===========================================================================
+// small M, bf16: the weight-streaming GEMV on the tensor cores
+// ===========================================================================
 
 // two narrow weight values (bytes i, i + 1 of word u) as a bf16 pair
 template <typename S>
@@ -197,120 +514,6 @@ __device__ __forceinline__ uint32_t pair_bf16w(uint32_t u, int i) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <typename S>
-__global__ void __launch_bounds__(128)
-    qmm_tc(const bf16* __restrict__ x, const S* __restrict__ w,
-           const float* __restrict__ scale, bf16* __restrict__ out, int M,
-           int N, int K) {
-  __shared__ __align__(16) bf16 sA[STAGES][TM * ALD];
-  __shared__ __align__(16) uint8_t sW[STAGES][TN * WLD];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * TM;
-  const int n0 = blockIdx.x * TN;
-  const int wm = (warp >> 1) * 32;
-  const int wn = (warp & 1) * 32;
-  const uint8_t* wb = reinterpret_cast<const uint8_t*>(w);
-
-  // a stage: x tile 64 rows x 128 bytes (4 chunks of 16 bytes a thread),
-  // weight tile 64 rows x 64 bytes (2 chunks a thread); out-of-range
-  // chunks are zero-filled (K % 16 == 0: a chunk is whole or outside)
-  auto load = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * 128;
-      const int r = idx >> 3, c = (idx & 7) * 8;
-      const bool ok = m0 + r < M && k0 + c < K;
-      cp_async16(sA[stage] + r * ALD + c,
-                 ok ? x + (long long)(m0 + r) * K + k0 + c : x, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * 128;
-      const int r = idx >> 2, c = (idx & 3) * 16;
-      const bool ok = n0 + r < N && k0 + c < K;
-      cp_async16(sW[stage] + r * WLD + c,
-                 ok ? wb + (long long)(n0 + r) * K + k0 + c : wb, ok);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int nk = (K + TK - 1) / TK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load(s, s * TK);
-    else asm volatile("cp.async.commit_group;\n" ::);
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
-    __syncthreads();  // tile kt landed; every warp is done with kt - 1
-    const int next = kt + STAGES - 1;
-    if (next < nk) load(next % STAGES, next * TK);
-    else asm volatile("cp.async.commit_group;\n" ::);
-    const bf16* A = sA[kt % STAGES];
-    const uint8_t* W = sW[kt % STAGES];
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const uint2 lo = *reinterpret_cast<const uint2*>(
-            A + (wm + 16 * i + g) * ALD + kk + 4 * t);
-        const uint2 hi = *reinterpret_cast<const uint2*>(
-            A + (wm + 16 * i + g + 8) * ALD + kk + 4 * t);
-        a[i][0] = lo.x;
-        a[i][1] = hi.x;
-        a[i][2] = lo.y;
-        a[i][3] = hi.y;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t u = *reinterpret_cast<const uint32_t*>(
-            W + (wn + 8 * j + g) * WLD + kk + 4 * t);
-        b[j][0] = pair_bf16w<S>(u, 0);
-        b[j][1] = pair_bf16w<S>(u, 2);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma16816(acc[i][j], a[i], b[j]);
-    }
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-
-  // C layout: c0, c1 at (g, 2t), (g, 2t+1); c2, c3 at (g+8, 2t), (g+8, 2t+1)
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + wn + j * 8 + 2 * t;
-    const float s0 = n < N ? scale[n] : 0.f;
-    const float s1 = n + 1 < N ? scale[n + 1] : 0.f;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm + i * 16 + g + 8 * h;
-        if (m >= M) continue;
-        bf16* dst = out + (long long)m * N + n;
-        if (n < N) dst[0] = __float2bfloat16(acc[i][j][2 * h] * s0);
-        if (n + 1 < N) dst[1] = __float2bfloat16(acc[i][j][2 * h + 1] * s1);
-      }
-    }
-  }
-}
-
-// ===========================================================================
-// small M, bf16: the weight-streaming GEMV on the tensor cores
-// ===========================================================================
 //
 // out^T[N, M] = W[N, K] . x^T[K, M]: weight rows are the 16 rows of an
 // mma.m16n8k16 A operand, the (up to 8) rows of x its 8 B columns, so the
@@ -534,13 +737,106 @@ cudaError_t launch_gemv_tc(const void* x, const void* w, const float* scale,
   return cudaGetLastError();
 }
 
+// The launch plan of quant_matmul.qmm_plan (body 1), checked against
+// what qmm_wg can run
+struct Plan {
+  int body, tn, token_tiles, row_tiles, splits, per, stages, smem, items,
+      grid;
+};
+
+// Raise qmm_wg<S, TN>'s dynamic shared-memory limit on device `dev`, once
+// per device (the attribute is per device; setting it costs host time on
+// each of the ~1800 launches of a prefill iteration)
+template <typename S, int TN>
+cudaError_t raise_smem_limit(int dev) {
+  static std::atomic<unsigned long long> done{0};
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      qmm_wg<S, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      WG_SMEM_MAX);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
+
+template <typename S, int TN>
+cudaError_t launch_wg(const void* x, const void* w, WgArgs& a, const Plan& p,
+                      int dev, cudaStream_t st) {
+  cudaError_t e = raise_smem_limit<S, TN>(dev);
+  if (e != cudaSuccess) return e;
+  CUtensorMap xm, wm, om;
+  const cuuint64_t xd[2] = {(cuuint64_t)a.K, (cuuint64_t)a.M};
+  const cuuint64_t xs[1] = {(cuuint64_t)a.K * 2};
+  const cuuint32_t xb[2] = {WG_KSTEP, TN};
+  const cuuint64_t wd[2] = {(cuuint64_t)a.K, (cuuint64_t)a.N};
+  const cuuint64_t ws[1] = {(cuuint64_t)a.K};
+  const cuuint32_t wb[2] = {WG_KSTEP, WG_ROWS};
+  // out [M, N] in panels of 64 columns x TN rows, as the tile is staged
+  const cuuint64_t od[2] = {(cuuint64_t)a.N, (cuuint64_t)a.M};
+  const cuuint64_t os[1] = {(cuuint64_t)a.N * 2};
+  const cuuint32_t ob[2] = {64, TN};
+  if (!encode_tiled(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xd, xs, xb,
+                    CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_tiled(&wm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, wd, ws, wb,
+                    CU_TENSOR_MAP_SWIZZLE_64B) ||
+      (a.tma_store &&
+       !encode_tiled(&om, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.out, od, os,
+                     ob, CU_TENSOR_MAP_SWIZZLE_128B)))
+    return cudaErrorInvalidValue;
+  if (!a.tma_store) om = xm;  // unused
+  qmm_wg<S, TN><<<p.grid, WG_THREADS, p.smem, st>>>(xm, wm, om, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.splits == 1) return e;
+  const long long n = (long long)a.M * ((a.N + 7) / 8);
+  qmm_reduce<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      a.part, a.scale, a.out, a.M, a.N, a.splits);
+  return cudaGetLastError();
+}
+
+template <typename S>
+cudaError_t launch_tc(const void* x, const void* w, const float* scale,
+                      void* out, void* part, int M, int N, int K,
+                      const Plan& p, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int tn = M <= 64 ? 64 : M <= 128 ? 128 : 256;
+  const int steps = (K + WG_KSTEP - 1) / WG_KSTEP;
+  const long long items =
+      (long long)p.token_tiles * p.row_tiles * p.splits;
+  const bool ok =
+      p.tn == tn && p.token_tiles == (M + tn - 1) / tn &&
+      p.row_tiles == (N + WG_ROWS - 1) / WG_ROWS && p.per >= 1 &&
+      p.splits == (steps + p.per - 1) / p.per && (p.splits == 1 || part) &&
+      p.splits <= WG_MAX_SPLITS && p.stages >= 2 &&
+      p.stages <= WG_MAX_STAGES &&
+      p.smem == wg_smem_bytes(tn, p.stages) && p.smem <= WG_SMEM_MAX &&
+      items == p.items && items < (1ll << 31) &&
+      p.grid == (items < sms ? items : sms);
+  if (!ok) return cudaErrorInvalidValue;
+  WgArgs a{scale,       static_cast<bf16*>(out), static_cast<float*>(part),
+           M,           N,                       K,
+           p.token_tiles, p.splits,              p.per,
+           p.stages,    p.items,                 p.splits == 1 && N % 8 == 0};
+  if (tn == 64) return launch_wg<S, 64>(x, w, a, p, dev, st);
+  if (tn == 128) return launch_wg<S, 128>(x, w, a, p, dev, st);
+  return launch_wg<S, 256>(x, w, a, p, dev, st);
+}
+
 template <typename T, typename S>
 cudaError_t launch_t(const void* x, const void* w, const float* scale,
-                     void* out, int M, int N, int K, cudaStream_t st) {
+                     void* out, void* part, int M, int N, int K,
+                     const Plan& p, cudaStream_t st) {
+  // body 0: the GEMV (M <= 16); 1: qmm_wg (bf16); 2: qmm_simt (fp32)
+  const int body = M <= SMALL_M ? 0 : sizeof(T) == 2 ? 1 : 2;
+  if (p.body != body) return cudaErrorInvalidValue;
   if constexpr (sizeof(T) == 2) {
     if (M <= 8) return launch_gemv_tc<S, 1>(x, w, scale, out, M, N, K, st);
     if (M <= SMALL_M)
       return launch_gemv_tc<S, 2>(x, w, scale, out, M, N, K, st);
+    return launch_tc<S>(x, w, scale, out, part, M, N, K, p, st);
   } else {
     if (M <= 1) return launch_gemv<S, 1>(x, w, scale, out, M, N, K, st);
     if (M <= 2) return launch_gemv<S, 2>(x, w, scale, out, M, N, K, st);
@@ -548,40 +844,47 @@ cudaError_t launch_t(const void* x, const void* w, const float* scale,
     if (M <= 8) return launch_gemv<S, 8>(x, w, scale, out, M, N, K, st);
     if (M <= SMALL_M)
       return launch_gemv<S, SMALL_M>(x, w, scale, out, M, N, K, st);
-  }
-  if constexpr (sizeof(T) == 2) {
-    const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
-    qmm_tc<S><<<grid, 128, 0, st>>>(static_cast<const bf16*>(x),
-                                    static_cast<const S*>(w), scale,
-                                    static_cast<bf16*>(out), M, N, K);
-  } else {
     const dim3 grid((N + FN - 1) / FN, (M + FM - 1) / FM);
     qmm_simt<S><<<grid, 256, 0, st>>>(static_cast<const float*>(x),
                                       static_cast<const S*>(w), scale,
                                       static_cast<float*>(out), M, N, K);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry for ctypes: x [M, K] (bf16 if is_bf16 else fp32), w [N, K]
 // (fp8 e4m3 if is_fp8 else int8), scale [N] f32, out [M, N] in x's dtype,
-// all contiguous and 16-byte aligned, K % 16 == 0. Returns the
-// cudaError_t of the launch (0 = accepted).
+// all contiguous and 16-byte aligned, K % 16 == 0; part: f32 scratch of
+// splits x M x N for a qmm_wg plan with splits > 1 (its contents are not
+// read before this launch writes them), else unused. The plan
+// (body, tn, token_tiles, row_tiles, splits, per, stages, smem, items,
+// grid) is quant_matmul.qmm_plan's (only body is read for the GEMV and
+// fp32 bodies); one this body cannot run is refused with
+// cudaErrorInvalidValue. Returns the cudaError_t of the launch (0 =
+// accepted).
 extern "C" int paddle_quant_matmul(const void* x, const void* w,
-                                   const void* scale, void* out, int is_bf16,
-                                   int is_fp8, int M, int N, int K,
+                                   const void* scale, void* out, void* part,
+                                   int is_bf16, int is_fp8, int M, int N,
+                                   int K, int body, int tn, int token_tiles,
+                                   int row_tiles, int splits, int per,
+                                   int stages, int smem, int items, int grid,
                                    void* stream) {
   if (K % 16 != 0 || M < 1 || N < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* s = static_cast<const float*>(scale);
+  const Plan p{body,   tn,    token_tiles, row_tiles, splits,
+               per,    stages, smem,       items,     grid};
   cudaError_t e;
   if (is_bf16)
-    e = is_fp8 ? launch_t<bf16, __nv_fp8_e4m3>(x, w, s, out, M, N, K, st)
-               : launch_t<bf16, int8_t>(x, w, s, out, M, N, K, st);
+    e = is_fp8
+            ? launch_t<bf16, __nv_fp8_e4m3>(x, w, s, out, part, M, N, K, p, st)
+            : launch_t<bf16, int8_t>(x, w, s, out, part, M, N, K, p, st);
   else
-    e = is_fp8 ? launch_t<float, __nv_fp8_e4m3>(x, w, s, out, M, N, K, st)
-               : launch_t<float, int8_t>(x, w, s, out, M, N, K, st);
+    e = is_fp8
+            ? launch_t<float, __nv_fp8_e4m3>(x, w, s, out, part, M, N, K, p,
+                                             st)
+            : launch_t<float, int8_t>(x, w, s, out, part, M, N, K, p, st);
   return static_cast<int>(e);
 }

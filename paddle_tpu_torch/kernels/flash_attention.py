@@ -27,31 +27,42 @@ For tensors on the CPU the function runs the plain versions
 ``flash_attention_fwd_ref`` / ``flash_attention_bwd_ref``, which compute
 the kernel bodies' formulas over whole rows. For CUDA tensors it
 launches the kernels or raises; there is no fallback. ``LAUNCHES``
-counts each kernel's launches.
+counts each kernel's launches and ``BODY_LAUNCHES`` K1's by body
+(``fwd_body``): ``wgmma`` (bf16: a persistent TMA ring and wgmma
+products) and ``simt`` (fp32).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 
 import torch
 
 from ._build import load_library
 
 __all__ = ["flash_attention", "flash_attn_varlen", "flash_attention_lse",
-           "flash_attention_fwd_ref", "flash_attention_bwd_ref",
-           "LAUNCHES", "reset_counters", "HEAD_DIMS", "NEG_INF"]
+           "flash_attention_fwd_ref", "flash_attention_bwd_ref", "fwd_body",
+           "LAUNCHES", "BODY_LAUNCHES", "reset_counters", "HEAD_DIMS",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+BODY_LAUNCHES: Counter = Counter()   # "flash_fwd/<body>"
 
 
 def reset_counters() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    BODY_LAUNCHES.clear()
+
+
+def fwd_body(dtype) -> str:
+    """The body of ``csrc/flash_attention.cu`` a K1 launch takes."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +193,7 @@ def _launch_fwd(q, k, v, seg, causal: bool, scale: float):
     if rc != 0:
         raise RuntimeError(f"flash_fwd: kernel launch failed (cudaError {rc})")
     LAUNCHES["flash_fwd"] += 1
+    BODY_LAUNCHES[f"flash_fwd/{fwd_body(q.dtype)}"] += 1
     return out, lse
 
 

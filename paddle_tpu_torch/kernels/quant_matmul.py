@@ -11,12 +11,16 @@ kernel and plain version differ only by summation order.
 The wrapper takes its plain version (``quant_matmul_ref``) only for
 tensors on the CPU. For CUDA tensors it launches the hand-written kernel
 of ``csrc/quant_matmul.cu`` or raises; launches are counted in
-``LAUNCHES``. ``quant_matmul_dispatch`` keeps the JAX package's gates
-(dtype, grad mode) with hits counted by format and fallbacks by reason.
+``LAUNCHES`` and, by kernel body (``qmm_body``), in ``BODY_LAUNCHES``:
+``gemv`` (M <= 16), ``wgmma`` (bf16, M > 16; its launch geometry is
+``qmm_plan``) and ``simt`` (fp32, M > 16). ``quant_matmul_dispatch``
+keeps the JAX package's gates (dtype, grad mode) with hits counted by
+format and fallbacks by reason.
 """
 
 from __future__ import annotations
 
+import functools
 from collections import Counter
 
 import torch
@@ -25,19 +29,134 @@ from ..quantization.intx import format_of_dtype
 from ._build import load_library
 
 __all__ = ["quant_matmul", "quant_matmul_ref", "quant_matmul_dispatch",
-           "LAUNCHES", "DISPATCH_HITS", "DISPATCH_FALLBACKS",
-           "reset_counters"]
+           "qmm_body", "qmm_plan", "qmm_items", "LAUNCHES", "BODY_LAUNCHES",
+           "DISPATCH_HITS", "DISPATCH_FALLBACKS", "reset_counters"]
 
 LAUNCHES = {"quant_matmul": 0}
+# launches by body: "quant_matmul/gemv", "quant_matmul/wgmma",
+# "quant_matmul/simt"
+BODY_LAUNCHES: Counter = Counter()
 DISPATCH_HITS: Counter = Counter()
 DISPATCH_FALLBACKS: Counter = Counter()
 
 
 def reset_counters() -> None:
-    """Zero the launch count and the dispatch hit/fallback counters."""
+    """Zero the launch counts and the dispatch hit/fallback counters."""
     LAUNCHES["quant_matmul"] = 0
+    BODY_LAUNCHES.clear()
     DISPATCH_HITS.clear()
     DISPATCH_FALLBACKS.clear()
+
+
+# ---------------------------------------------------------------------------
+# kernel bodies and the wgmma body's launch plan (mirrored and checked by
+# csrc/quant_matmul.cu)
+# ---------------------------------------------------------------------------
+
+SMALL_M = 16           # rows up to which the GEMV body runs
+BODIES = ("gemv", "wgmma", "simt")   # body codes 0, 1, 2 of the C entry
+ROWS = 128             # weight rows per item: two consumer warpgroups
+KSTEP = 64             # k per ring slot
+MAX_STAGES = 8
+MAX_SPLITS = 8
+SMEM_MAX = 232448      # shared bytes a block can use on sm_90
+
+
+def qmm_body(M: int, dtype) -> str:
+    """The kernel body a launch of ``M`` rows of ``dtype`` takes."""
+    if M <= SMALL_M:
+        return "gemv"
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+def _smem_bytes(tn: int, stages: int) -> int:
+    # 1024 alignment slack, the x and weight rings, the epilogue's two
+    # 64-column panels of tn rows, two mbarriers a stage
+    return 1024 + stages * (tn * 128 + ROWS * KSTEP) + 2 * tn * 128 \
+        + 16 * stages
+
+
+_PLAN_KEYS = ("tn", "token_tiles", "row_tiles", "splits", "per", "stages",
+              "smem", "items", "grid")
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_args(M: int, N: int, K: int, sms: int) -> tuple:
+    # qmm_plan's values in _PLAN_KEYS order, the C entry's argument order;
+    # cached, since a serving forward asks for the same few shapes
+    # hundreds of times
+    tn = 64 if M <= 64 else 128 if M <= 128 else 256
+    token_tiles, row_tiles = -(-M // tn), -(-N // ROWS)
+    steps = -(-K // KSTEP)
+    tiles = token_tiles * row_tiles
+    splits = 1 if 2 * tiles >= sms else min(sms // tiles, MAX_SPLITS)
+    per = -(-steps // min(splits, steps))
+    splits = -(-steps // per)
+    slot = tn * 128 + ROWS * KSTEP
+    stages = min(MAX_STAGES,
+                 (SMEM_MAX - _smem_bytes(tn, 0)) // (slot + 16))
+    items = tiles * splits
+    return (tn, token_tiles, row_tiles, splits, per, stages,
+            _smem_bytes(tn, stages), items, min(items, sms))
+
+
+def qmm_plan(M: int, N: int, K: int, sms: int) -> dict:
+    """Launch geometry of the wgmma body for x [M, K] against w [N, K]
+    on a card of ``sms`` SMs. A work item is (128 weight rows, ``tn``
+    tokens, one K split of ``per`` 64-k steps); ``tn`` is 64, 128 or 256
+    from M, and M past 256 walks 256-token tiles. K is split only while
+    the output tiles alone leave the SMs less than half busy, and no
+    further than one item per SM (at most ``MAX_SPLITS``): each split
+    adds its [M, N] f32 partial to the device memory traffic, and a
+    second launch (``qmm_reduce``) sums them in split order. The splits
+    made are ceil(steps / per), so none is empty. The ring takes as many
+    stages as shared memory holds."""
+    return dict(zip(_PLAN_KEYS, _plan_args(M, N, K, sms)))
+
+
+_NO_PLAN = (0, 0, 0, 1, 0, 0, 0, 0, 0)   # the GEMV and fp32 bodies
+
+
+def qmm_items(plan: dict, M: int, N: int, K: int):
+    """The plan's work items in launch order, as the body walks them:
+    (rows n0..n1 of the weight, tokens m0..m1, k0..k1), clipped at N, M
+    and K."""
+    tn, per = plan["tn"], plan["per"]
+    out = []
+    for item in range(plan["items"]):
+        sp, tile = item % plan["splits"], item // plan["splits"]
+        n0 = tile // plan["token_tiles"] * ROWS
+        m0 = tile % plan["token_tiles"] * tn
+        k0 = sp * per * KSTEP
+        out.append((n0, min(n0 + ROWS, N), m0, min(m0 + tn, M), k0,
+                    min(k0 + per * KSTEP, K)))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sm_count(device) -> int:
+    return _sms_of(device.index if device.index is not None
+                   else torch.cuda.current_device())
+
+
+# per (device, stream): the split partials' f32 scratch, grown to the
+# largest split launch. Launches on one stream run one after another and
+# each writes the partials before it reads them, so they share it: a
+# split product allocates nothing.
+_SCRATCH: dict = {}
+
+
+def _split_scratch(device, stream: int, n: int) -> int:
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _SCRATCH[key] = torch.empty(n, dtype=torch.float32,
+                                          device=device)
+    return buf.data_ptr()
 
 
 def quant_matmul_dispatch(*, dtype, fmt: str) -> bool:
@@ -107,14 +226,21 @@ def quant_matmul(x, qweight, scale):
     M, N = x2.shape[0], qweight.shape[0]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M:
+        body = qmm_body(M, x.dtype)
+        plan = _plan_args(M, N, K, _sm_count(x.device)) \
+            if body == "wgmma" else _NO_PLAN
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        part = _split_scratch(x.device, stream, plan[3] * M * N) \
+            if plan[3] > 1 else None   # split K: the f32 partials
         lib = load_library("quant_matmul.cu")
         rc = lib.paddle_quant_matmul(
             x2.data_ptr(), qweight.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), int(x.dtype == torch.bfloat16),
-            int(format_of_dtype(qweight.dtype) == "fp8"), M, N, K,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            out.data_ptr(), part, int(x.dtype == torch.bfloat16),
+            int(qweight.dtype != torch.int8), M, N, K,
+            BODIES.index(body), *plan, stream)
         if rc != 0:
             raise RuntimeError(f"quant_matmul: kernel launch failed "
                                f"(cudaError {rc})")
         LAUNCHES["quant_matmul"] += 1
+        BODY_LAUNCHES[f"quant_matmul/{body}"] += 1
     return out.reshape(lead + (N,))

@@ -80,8 +80,10 @@ class ServingConfig:
     - ``max_len``: per-slot KV capacity (prompt + new tokens).
     - ``block_size``: tokens per KV block; must divide ``max_len``.
     - ``num_blocks``: pool size INCLUDING the dump block. Default
-      ``max_slots * max_len / block_size + 1`` (never runs out); smaller
-      pools oversubscribe and preempt.
+      ``max_slots * (max_len / block_size + 1) + 1`` (never runs out:
+      each slot also has room for the copy-on-write fork of a partial
+      tail block it shares with the prefix cache); smaller pools
+      oversubscribe and preempt.
     - ``prefill_chunk``: tokens per prefill chunk.
     - ``prefix_caching``: reuse prefilled prompt prefixes.
     - ``max_queue_depth``: admission backpressure bound.
@@ -182,7 +184,15 @@ class ServingConfig:
         return self.max_len // self.block_size
 
     def default_num_blocks(self) -> int:
-        return self.max_slots * self.blocks_per_slot() + 1
+        """A pool that never runs out: every slot's ``blocks_per_slot``
+        blocks, one more per slot, and the dump block. The extra block
+        is the copy-on-write fork of a prompt's partial tail block: the
+        prefix cache registers that block, so the slot's first decode
+        write forks it while every other block of the pool may be the
+        slot's own (cached, hence not evictable). Without it a prompt
+        that ends inside the slot's last block is preempted and
+        re-admitted onto the same cached blocks forever."""
+        return self.max_slots * (self.blocks_per_slot() + 1) + 1
 
 
 @dataclass

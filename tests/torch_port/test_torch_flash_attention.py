@@ -148,3 +148,11 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
     with pytest.raises(TypeError, match="bfloat16"):
         h = q[..., :32].half()
         tfa._check(h, h, h, None)
+
+
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "wgmma"),
+                                        (torch.float32, "simt")])
+def test_forward_body_routing(dtype, body):
+    """K1's body by dtype: the wgmma body serves bf16 at every head_dim
+    (32 computed as 64 zero-filled columns), plain FMA fp32."""
+    assert tfa.fwd_body(dtype) == body

@@ -121,6 +121,63 @@ def test_flash_kernels_match_plain(s, d, causal, with_seg, dtype):
                                    rtol=0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 200, 1024])
+@pytest.mark.parametrize("causal,with_seg", [(True, False), (False, False),
+                                             (True, True)])
+def test_flash_fwd_bodies_match_plain(s, d, causal, with_seg):
+    """K1 in bf16 at every head_dim, short and ragged lengths, causal or
+    not, with segments: out and lse against the plain version, every
+    launch on the wgmma body, and two launches bit-equal."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+
+    require_cuda()
+    rng = np.random.RandomState(s * d + causal)
+    shape = (2, s, 3, d)
+    q, k, v, _, _, seg = _flash_case(rng, shape, torch.bfloat16,
+                                     with_seg and s > 4)
+    scale = 1.0 / np.sqrt(d)
+    tfa.reset_counters()
+    out, lse = tfa._launch_fwd(q, k, v, seg, causal, scale)
+    out2, lse2 = tfa._launch_fwd(q, k, v, seg, causal, scale)
+    torch.cuda.synchronize()
+    assert dict(tfa.BODY_LAUNCHES) == {"flash_fwd/wgmma": 2}
+    assert torch.equal(out.view(torch.int16), out2.view(torch.int16))
+    assert torch.equal(lse, lse2)
+    want_out, want_lse = tfa.flash_attention_fwd_ref(q, k, v, seg, causal,
+                                                     scale)
+    atol = ATOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_fwd_reads_a_fused_qkv_view(d):
+    """q, k and v as strided views of one fused [b, s, 3 h d] projection
+    (the layout a fused qkv linear gives): the wgmma body reads them in
+    place through its tensor maps, with no copy."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+
+    require_cuda()
+    rng = np.random.RandomState(d)
+    b, s, h = 2, 300, 4
+    qkv = _cuda(rng, (b, s, 3 * h * d), torch.bfloat16)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, s, h, d)
+               for i in range(3))
+    assert not q.is_contiguous() and tfa._strided(q) is q
+    out, lse = tfa._launch_fwd(q, k, v, None, True, 1.0 / np.sqrt(d))
+    want_out, want_lse = tfa.flash_attention_fwd_ref(
+        q.contiguous(), k.contiguous(), v.contiguous(), None, True,
+        1.0 / np.sqrt(d))
+    atol = ATOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=atol, rtol=0)
+
+
 def _quantized(t, fmt):
     """Per-token-per-head absmax pack of a [.., KV, d] cache or pool:
     (narrow values, f32 scales [.., KV])."""
@@ -214,6 +271,69 @@ def test_quant_matmul_kernel_matches_plain(M, N, K, dtype, fmt):
     want = tqm.quant_matmul_ref(x, w, scale)
     torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype],
                                rtol=0)
+
+
+def _qmm_case(rng, M, N, K, fmt):
+    from paddle_tpu_torch.quantization.intx import pack_absmax
+
+    x = (_cuda(rng, (M, K), torch.float32) * (0.5 / np.sqrt(K))) \
+        .to(torch.bfloat16)
+    wf = _cuda(rng, (N, K), torch.float32)
+    amax = wf.abs().amax(dim=1)
+    w = pack_absmax(wf, amax[:, None], fmt)
+    return x, w, amax / (127.0 if fmt == "int8" else 448.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("M,N,K", [(17, 33, 1040), (56, 130, 1040),
+                                   (65, 130, 1040), (128, 33, 1040),
+                                   (129, 130, 1040), (256, 33, 1040),
+                                   (300, 130, 1040), (56, 8450, 1040),
+                                   (128, 11008, 1040), (129, 11008, 1040),
+                                   (300, 4096, 4096)])
+def test_quant_matmul_wgmma_body_matches_plain(M, N, K, fmt):
+    """K9's wgmma body (bf16, M > 16) at its three token-tile widths, M
+    past one 256-token tile, N and K tails, split K (small N) and one
+    split with the element-wise store (N % 8 != 0); two launches are
+    bit-equal (the split partials are summed in a fixed order)."""
+    from paddle_tpu_torch.kernels import quant_matmul as tqm
+
+    require_cuda()
+    rng = np.random.RandomState(M + N + K)
+    x, w, scale = _qmm_case(rng, M, N, K, fmt)
+    tqm.reset_counters()
+    got = tqm.quant_matmul(x, w, scale)
+    again = tqm.quant_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    assert dict(tqm.BODY_LAUNCHES) == {"quant_matmul/wgmma": 2}
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    want = tqm.quant_matmul_ref(x, w, scale)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quant_matmul_widens_every_byte_like_torch(fmt):
+    """Every int8 byte and every non-NaN e4m3 byte through the wgmma
+    body: with x a one-hot row and a unit scale, out[m, n] is weight row
+    n's first byte widened, equal to torch's .to(torch.bfloat16) (a
+    negative zero comes back as +0: the sum adds +0 products)."""
+    from paddle_tpu_torch.kernels import quant_matmul as tqm
+
+    require_cuda()
+    dtype = torch.int8 if fmt == "int8" else torch.float8_e4m3fn
+    byte = torch.arange(256, dtype=torch.uint8)
+    w = byte[:, None].repeat(1, 64).view(dtype).cuda().contiguous()
+    x = torch.zeros(17, 64, dtype=torch.bfloat16, device="cuda")
+    x[:, 0] = 1
+    got = tqm.quant_matmul(x, w, torch.ones(256, device="cuda"))
+    want = w[:, 0].to(torch.bfloat16)
+    keep = byte.cuda() & 0x7F != 0x7F if fmt == "fp8" \
+        else torch.ones(256, dtype=torch.bool, device="cuda")
+    assert torch.equal(got[:, keep].float(),
+                       want[keep].float()[None].expand(17, -1))
 
 
 def _tree_mask(factors, B):

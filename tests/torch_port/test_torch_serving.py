@@ -127,3 +127,30 @@ def test_prefix_hit_moves_the_last_chunk_off_the_grid():
     for p, got in zip((first, second), outs["torch"][0]):
         assert got == tm.generate(p[None], max_new_tokens=4)[0, len(p):] \
             .tolist()
+
+
+def test_prompt_ending_in_the_last_block_completes_at_the_default_pool():
+    """C3: a 56-token prompt ends inside the slot's last block (max_len
+    64, blocks of 16). The prefix cache registers that partial block, so
+    the first decode write forks it: the default pool must hold the
+    fork's block, or the request is preempted and re-admitted onto the
+    same cached blocks forever. The JAX engine's default has no room for
+    the fork, so it is given the port's pool size explicitly."""
+    jm, tm, cfg = tiny_pair(max_position_embeddings=128)
+    prompt = np.random.RandomState(5).randint(1, cfg.vocab_size, 56)
+    kw = dict(max_slots=1, max_len=64, block_size=16, prefill_chunk=16,
+              prefix_caching=True)
+    eng = tserving.ServingEngine(tm, device="cpu", **kw)
+    assert eng._nblocks == tserving.ServingConfig(**kw).default_num_blocks() \
+        == 6
+    req = eng.submit(prompt, max_new_tokens=6)
+    eng.run_until_idle(max_steps=50)
+    assert req.status == "completed"
+    assert eng._preempt_count == 0
+    assert eng.pool.stats()["cow_forks"] == 1
+    jeng = jserving.ServingEngine(jm, num_blocks=6, **kw)
+    jreq = jeng.submit(prompt, max_new_tokens=6)
+    jeng.run_until_idle(max_steps=50)
+    assert jreq.status == "completed"
+    ref = tm.generate(prompt[None], max_new_tokens=6)[0, 56:].tolist()
+    assert list(req.output_tokens) == list(jreq.output_tokens) == ref

@@ -115,9 +115,12 @@ def test_engine_chain_matches_jax(pair):
     new = [12, 9, 15, 7, 10]
     ks = [None, 0, 1, None, 2]
     kw = dict(max_slots=3, max_len=256, prefill_chunk=32, spec_k=3)
+    # the port's default pool (room for a COW fork per slot, C3)
+    nb = tserving.ServingConfig(**kw).default_num_blocks()
     runs = {}
     for name, eng in (
-            ("jax", jserving.ServingEngine(jm, draft_model=jd, **kw)),
+            ("jax", jserving.ServingEngine(jm, draft_model=jd,
+                                           num_blocks=nb, **kw)),
             ("torch", tserving.ServingEngine(tm, device="cpu",
                                              draft_model=td, **kw))):
         reqs = [eng.submit(p, max_new_tokens=n, spec_k=k)
@@ -176,9 +179,11 @@ def test_engine_on_quantized_pools_matches_jax(pair):
     new = [12, 9, 15]
     kw = dict(max_slots=2, max_len=128, prefill_chunk=32, kv_format="int8",
               spec_tree=[2, 2])
+    nb = tserving.ServingConfig(**kw).default_num_blocks()
     runs = {}
     for name, eng in (
-            ("jax", jserving.ServingEngine(jm, draft_model=jd, **kw)),
+            ("jax", jserving.ServingEngine(jm, draft_model=jd,
+                                           num_blocks=nb, **kw)),
             ("torch", tserving.ServingEngine(tm, device="cpu",
                                              draft_model=td, **kw))):
         reqs = [eng.submit(p, max_new_tokens=n, spec_k=k)

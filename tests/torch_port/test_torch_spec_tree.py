@@ -170,8 +170,10 @@ def test_engine_tree_matches_jax(pair):
     new = [12, 9, 15, 10]
     ks = [None, 1, 0, None]
     kw = dict(max_slots=3, max_len=256, prefill_chunk=32, spec_tree=[2, 2])
-    want = _serve(jserving.ServingEngine(jm, draft_model=jd, **kw),
-                  prompts, new, ks)
+    # the port's default pool (room for a COW fork per slot, C3)
+    nb = tserving.ServingConfig(**kw).default_num_blocks()
+    want = _serve(jserving.ServingEngine(jm, draft_model=jd, num_blocks=nb,
+                                         **kw), prompts, new, ks)
     got = _serve(tserving.ServingEngine(tm, device="cpu", draft_model=td,
                                         **kw), prompts, new, ks)
     assert got == want
