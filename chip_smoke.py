@@ -55,10 +55,11 @@ Phases, each printing JSON lines (and failing loudly on any check):
    the serving shapes, the paged ones also at q_len 16 / 17 and
    ``MMA_ROWS`` + 1 (the tensor-core body's one-tile and wide-tile
    edges); each decode row names the kernel body it took (``rows``,
-   ``mma``, ``tiled``). The flash-attention kernels K1-K3 (K1's rows
-   name its body) compare out,
-   lse, dq, dk and dv at ``FLASH_SHAPES`` (the training shape in bf16
-   and fp32, Llama-2-7B's heads, non-causal, segment ids, s = 1000).
+   ``mma``, ``tiled``). The flash-attention kernels K1-K3 (each row
+   naming its body, with its TFLOP/s and share of the bound) compare
+   out, lse, dq, dk and dv at ``FLASH_SHAPES`` (the training shape in
+   bf16 and fp32, Llama-2-7B's heads, non-causal, segment ids, s =
+   1000).
    The quantized kernels: K5 and K7 (flash decode over int8 / fp8 K/V
    with per-token-per-head scales, dequantized in the kernel) at the
    same serving shapes against their plain versions, with SDPA over the
@@ -151,7 +152,7 @@ Phases, each printing JSON lines (and failing loudly on any check):
    losses, ms per step, tokens/s, peak memory and an MFU estimate;
    asserts finite losses, a first loss within 0.5 of ln(32000), a last
    loss below the first, and exactly 12 launches per step of each of
-   K1, K2 and K3, every K1 launch on its ``wgmma`` body. ``profile``:
+   K1, K2 and K3, every launch on its ``wgmma`` body. ``profile``:
    one train step's wall and device time and top kernels. ``train_parity``: the same width at depth 2, batch 2,
    seq 256 in fp32, three steps on the card and three on the CPU (plain
    versions) from the same weights: losses agree to rtol 1e-4, every
@@ -392,6 +393,13 @@ def visible_pairs(b, s, h, causal, seg):
     return h * total
 
 
+def flash_flops(name, d, pairs):
+    """Matrix-product operations of one flash kernel over the visible
+    (query, key) pairs: two products in K1, four in K2, three in K3."""
+    return {"flash_fwd": 4, "flash_bwd_dkdv": 8, "flash_bwd_dq": 6}[name] \
+        * d * pairs
+
+
 def flash_bound(name, b, s, h, d, isz, pairs, dname):
     """Least time for one flash kernel: inputs read once, outputs written
     once, or its matrix-product operations at the dtype's peak."""
@@ -400,8 +408,7 @@ def flash_bound(name, b, s, h, d, isz, pairs, dname):
     nbytes = {"flash_fwd": 4 * n + stats,             # q k v -> out, lse
               "flash_bwd_dkdv": 6 * n + 2 * stats,    # q k v do lse delta -> dk dv
               "flash_bwd_dq": 5 * n + 2 * stats}[name]
-    flops = {"flash_fwd": 4, "flash_bwd_dkdv": 8, "flash_bwd_dq": 6}[name] \
-        * d * pairs
+    flops = flash_flops(name, d, pairs)
     t_bytes = nbytes / PEAKS["bw"] * 1e3
     t_ops = flops / PEAKS[dname] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -496,7 +503,7 @@ def flash_kernel_phase(rng):
             row = {"phase": "kernel", "name": name, "case": label,
                    "dtype": dname, "shape_bshd": [b, s, h, d],
                    "body": fa.fwd_body(dtype) if name == "flash_fwd"
-                   else None,
+                   else fa.bwd_body(dtype),
                    "causal": causal, "segments": with_seg,
                    "max_abs_err": e,
                    "errs": {x: errs[x] for x in checked[name]},
@@ -508,7 +515,9 @@ def flash_kernel_phase(rng):
                    "library": "F.scaled_dot_product_attention "
                               + ("forward" if name == "flash_fwd"
                                  else "backward (dq, dk and dv together)"),
-                   "bound_ms": bound, "bound_by": bound_by}
+                   "bound_ms": bound, "bound_by": bound_by,
+                   "tflops": flash_flops(name, d, pairs) / ms / 1e9,
+                   "bound_share": bound / ms}
             emit(row)
             rows.append(row)
             check(row["ok"], f"{name} disagrees with its plain version: "
@@ -655,9 +664,9 @@ def train_phase(kind):
         check(launches[name] == L * n_steps,
               f"{name} launched {launches[name]} times, expected "
               f"{L} layers x {n_steps} steps = {L * n_steps}")
-    # every forward on the wgmma body
-    check(bodies == {"flash_fwd/wgmma": L * n_steps},
-          f"K1 bodies {bodies}, expected {L * n_steps} on the wgmma body")
+    # every forward and backward launch on its wgmma body
+    want = {f"{name}/wgmma": L * n_steps for name in fa.LAUNCHES}
+    check(bodies == want, f"K1-K3 bodies {bodies}, expected {want}")
     prof = device_window(lambda: step.step(ids, labels), 1)
     emit({"phase": "profile", "model": "llama_134m", "dtype": "bfloat16",
           "what": "one train step (forward, loss, backward, AdamW)",

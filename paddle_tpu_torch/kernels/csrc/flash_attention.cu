@@ -28,20 +28,18 @@
 //   and the other warpgroup's products (ex2 in base 2, masks only on tiles
 //   crossing the diagonal, a segment or S, one reciprocal a row at the
 //   end). head_dim 32 is computed as 64 zero-filled columns.
-// - The backward passes: one CUDA block (8 warps) per (row tile, batch x
-//   head). The TPU's sequential grid axis becomes a loop inside the
-//   block; nothing is carried between blocks, and neither backward pass
-//   needs atomics, so results are deterministic. bf16 runs on the tensor
-//   cores with mma.sync m16n8k16 (fp32 accumulate), FlashAttention-2
-//   style: each warp owns 16 rows; scores, probabilities and the
-//   accumulators stay in registers (the accumulator layout of mma.sync is
-//   the A-operand layout of the next product, so p and ds feed it without
-//   a trip through shared memory); only the streamed tiles go through
-//   shared memory. Row tiles are 128 (16 per warp); the dQ pass streams
-//   64-key tiles, the dK/dV pass 32-query tiles. At head_dim <= 64
-//   registers are capped so two blocks share an SM and one's loads
-//   overlap the other's products (K3 0.76 -> 0.48 ms at the training
-//   shape, measured on one H100 80GB HBM3 at 700 W).
+// - The bf16 backward passes (flash_bwd_dq_wg, flash_bwd_dkdv_wg) have the
+//   forward's shape: one persistent block per SM walks (128-row tile,
+//   batch x head) items (query tiles for dQ, longest causal tiles first;
+//   key tiles for dK/dV, key tile 0 first), a producer warp keeps the
+//   item's own two tiles and a ring of streamed 64-row tiles in flight
+//   by TMA, and two consumer warpgroups of 64 rows run every product as
+//   wgmma: S and dP against K-major K, V tiles and dQ += dS K against the
+//   same K tile read MN-major; S^T and dP^T against K-major Q, dO tiles
+//   and dV += P^T dO, dK += dS^T Q against the same tiles read MN-major.
+//   The TPU's sequential grid axis becomes the ring; nothing is carried
+//   between items and neither pass uses atomics, so results are
+//   deterministic.
 // - fp32 runs plain fp32 FMA from shared-memory tiles (32 rows), never
 //   TF32, so its check against the plain version is exact to rounding
 //   order. It is the card-against-CPU parity path, not a fast path.
@@ -52,12 +50,10 @@
 // - p (forward, dV) and ds (dK, dQ) are rounded to the input dtype
 //   before their second product, as the TPU kernel does.
 // - Inputs are [b, s, h, d] read through (batch, row, head) strides with
-//   a unit inner stride; a ragged last tile is zero-filled on load and
-//   masked (key >= s) so any length works. Causal grids skip the tiles
-//   beyond the diagonal (and a warp skips a tile wholly beyond its rows);
-//   the forward and dQ grids start with the longest tiles.
-// - The backward passes load their tiles with plain 16-byte vector loads
-//   between __syncthreads; wgmma and TMA there are later work.
+//   a unit inner stride (tensor maps in bf16, so a fused-qkv view is read
+//   in place); a ragged last tile is zero-filled on load and masked (key
+//   >= s) so any length works. Causal walks skip the tiles beyond the
+//   diagonal (and a warpgroup the tiles wholly beyond its rows).
 //
 // C interface (ctypes): each entry returns cudaGetLastError() after its
 // launch; strides are int64 (batch, row, head) triples per input tensor.
@@ -66,7 +62,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"  // bf16 typedef, mma16816, fragment loads
+#include "mma_bf16.cuh"  // bf16 typedef, packing, accumulator as A
 #include "sm90.cuh"      // TMA, mbarriers, wgmma, tensor maps
 
 #define NEG_INF (-1e30f)
@@ -129,17 +125,8 @@ __device__ void load_tile(T* sm, int ld, const T* g, long long st, int row0,
 }
 
 // ===========================================================================
-// bf16: tensor cores (mma.sync m16n8k16, fp32 accumulate)
+// bf16
 // ===========================================================================
-
-constexpr int TC_ROWS = 16 * NWARPS;  // rows per block, 16 per warp
-constexpr int TC_KEYS = 64;           // key tile of the dQ pass
-constexpr int TC_QROWS = 32;          // query tile of the dK/dV pass
-constexpr int TC_PAD = 8;             // 16 bytes per shared row
-// blocks per SM the register budget is cut for: two at head_dim <= 64
-// (at most 128 registers a thread), one at 128, whose dK/dV
-// accumulators alone take 128
-#define TC_BLOCKS(D) ((D) <= 64 ? 2 : 1)
 
 // a warp's 16 x D fp32 accumulator (rows g and g + 8 of each lane) into
 // [b, s, h, d] bf16 at row0, rows < S only
@@ -488,183 +475,623 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
   if (wg == 0) turn_wait(0);  // warpgroup 1's last pass
 }
 
-// K3, bf16. Block = (128 query rows, batch x head); warp w owns 16 rows
-// and streams 64-key tiles up to the diagonal.
+// ===========================================================================
+// K2 and K3, bf16: persistent TMA rings, wgmma
+// ===========================================================================
+//
+// Both passes have K1's shape: one persistent block per SM walks items of
+// 128 rows (queries for dQ, keys for dK/dV) x (batch, head); the producer
+// warp loads an item's own two tiles once (into a second buffer while the
+// consumers still read the first, at head_dim <= 64) and keeps a ring of
+// streamed 64-row tiles in flight on mbarriers, across items (4-D tensor
+// maps over the caller's strides, 128-byte swizzled 64-column panels,
+// rows past S zero-filled); two consumer warpgroups own 64 of the item's rows each
+// and run every product as wgmma. The score products read both operands
+// from shared memory (wgmma_ss_n64: the item's own tile as A, a streamed
+// tile as B, both K-major); the accumulating products take the rounded
+// p or dS from registers as A and read the same streamed tile MN-major
+// (the descriptor's transpose bit), so one staged tile serves both. The
+// own tiles stay in shared memory for the whole item: held as register
+// fragments across the tile loop instead (K1's way), they gave wrong
+// gradients at head_dim 64 for a reason not found: a compiler fault, a
+// missing fence and a fragment rewritten under an async wgmma look alike.
+// Register plan of a consumer thread (32-bit registers):
+//   dQ   S, dP 32 + 32; dS 16; dQ 32 (D <= 64) or 64 (D = 128)
+//   dKdV S^T, dP^T 32 + 32; P^T, dS^T 16 + 16; dK, dV 32 + 32 (D <= 64)
+//        or 64 + 64 (D = 128)
+// Scores are scaled in base 2 (ex2, log2(e) folded into the scale and
+// the LSE); masks apply only to tiles that cross the diagonal or S, and
+// with segment ids to every tile. The accumulators leave through a
+// swizzled staging tile and a TMA store clipped at S and at head_dim.
+
+constexpr int BW_ROWS = 128;       // an item's own rows
+constexpr int BW_TILE = 64;        // rows of a streamed tile
+constexpr int BW_CONSUMERS = 256;  // two consumer warpgroups of 64 rows
+constexpr int BW_THREADS = BW_CONSUMERS + 128;  // and the producer's
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int BW_STAGES = 4;  // streamed tiles in flight, where they fit
+
 template <int D>
-__global__ void __launch_bounds__(NT, TC_BLOCKS(D)) flash_bwd_dq_bf16(Args a) {
-  constexpr int BM = TC_ROWS, BN = TC_KEYS, LD = D + TC_PAD;
-  constexpr int NJ = BN / 8, ND = D / 8, KD = D / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + BM * LD;
-  bf16* sK = sDO + BM * LD;
-  bf16* sV = sK + BN * LD;
+struct BwGeom {
+  static constexpr int DP = D < 64 ? 64 : D;  // 32 as one zero-filled panel
+  static constexpr int PANELS = DP / 64;
+  static constexpr int OWN_BYTES = BW_ROWS * DP * 2;   // one own tile
+  static constexpr int TILE_BYTES = BW_TILE * DP * 2;  // one streamed tile
+  static constexpr int OUT_BYTES = 64 * DP * 2;  // a warpgroup's staging
+  // K3: Q and dO (twice, where the ring still keeps 3 stages: the next
+  // item's pair loads during this one), the ring (K then V a stage), a
+  // staging tile a warpgroup; mbarriers full, empty, own_full, own_empty
+  static constexpr int DQ_FIT2 =
+      (FW_SMEM_MAX - 1024 - 4 * OWN_BYTES - 2 * OUT_BYTES - 32) /
+      (2 * TILE_BYTES + 16);
+  static constexpr int DQ_OWN = DQ_FIT2 >= 3 ? 2 : 1;
+  static constexpr int DQ_FIT =
+      (FW_SMEM_MAX - 1024 - 2 * DQ_OWN * OWN_BYTES - 2 * OUT_BYTES -
+       16 * DQ_OWN) /
+      (2 * TILE_BYTES + 16);
+  static constexpr int DQ_STAGES = DQ_FIT < BW_STAGES ? DQ_FIT : BW_STAGES;
+  static constexpr int DQ_SMEM = 1024 + 2 * DQ_OWN * OWN_BYTES +
+                                 DQ_STAGES * 2 * TILE_BYTES + 2 * OUT_BYTES +
+                                 8 * (2 * DQ_STAGES + 2 * DQ_OWN);
+  // K2: K and V (twice where that fits beside 3 stages), the ring (Q then
+  // dO a stage), two staging tiles a warpgroup (dK, dV), the ring's
+  // column statistics (lse * log2(e), delta, segment id of each query),
+  // mbarriers
+  static constexpr int STAT_BYTES = 3 * BW_TILE * 4;
+  static constexpr int KV_FIT2 =
+      (FW_SMEM_MAX - 1024 - 4 * OWN_BYTES - 4 * OUT_BYTES - 32) /
+      (2 * TILE_BYTES + STAT_BYTES + 16);
+  static constexpr int KV_OWN = KV_FIT2 >= 3 ? 2 : 1;
+  static constexpr int KV_FIT =
+      (FW_SMEM_MAX - 1024 - 2 * KV_OWN * OWN_BYTES - 4 * OUT_BYTES -
+       16 * KV_OWN) /
+      (2 * TILE_BYTES + STAT_BYTES + 16);
+  static constexpr int KV_STAGES = KV_FIT < BW_STAGES ? KV_FIT : BW_STAGES;
+  static constexpr int KV_SMEM =
+      1024 + 2 * KV_OWN * OWN_BYTES +
+      KV_STAGES * (2 * TILE_BYTES + STAT_BYTES) + 4 * OUT_BYTES +
+      8 * (2 * KV_STAGES + 2 * KV_OWN);
+};
 
-  const int n_q = (a.S + BM - 1) / BM, n_k = (a.S + BN - 1) / BN;
-  const int qi = a.causal ? n_q - 1 - blockIdx.x : blockIdx.x;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int q0 = qi * BM, r0 = (threadIdx.x >> 5) * 16;
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int qrow[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  const bf16* gk = slice<bf16>(a.k, a.sk, b, h);
-  const bf16* gv = slice<bf16>(a.v, a.sv, b, h);
-
-  load_tile<bf16, D>(sQ, LD, slice<bf16>(a.q, a.sq, b, h), a.sq[1], q0, BM,
-                     a.S);
-  load_tile<bf16, D>(sDO, LD, slice<bf16>(a.dout, a.sdo, b, h), a.sdo[1], q0,
-                     BM, a.S);
-  float lse[2], delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool ok = qrow[r] < a.S;
-    lse[r] = ok ? a.lse_in[(long long)bh * a.S + qrow[r]] : 0.0f;
-    delta[r] = ok ? a.delta[(long long)bh * a.S + qrow[r]] : 0.0f;
-  }
-  float dq[ND][4] = {};
-  const int last = a.causal ? min(n_k, (q0 + BM - 1) / BN + 1) : n_k;
-  for (int kb = 0; kb < last; ++kb) {
-    const int k0 = kb * BN;
-    __syncthreads();
-    load_tile<bf16, D>(sK, LD, gk, a.sk[1], k0, BN, a.S);
-    load_tile<bf16, D>(sV, LD, gv, a.sv[1], k0, BN, a.S);
-    __syncthreads();
-    if (a.causal && k0 > q0 + r0 + 15) continue;
-    float s[NJ][4] = {}, dp[NJ][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qa[4], da[4];
-      frag_a(qa, sQ, LD, r0, kk * 16);
-      frag_a(da, sDO, LD, r0, kk * 16);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        uint32_t kf[2], vf[2];
-        frag_bt(kf, sK, LD, j * 8, kk * 16);
-        mma16816(s[j], qa, kf);
-        frag_bt(vf, sV, LD, j * 8, kk * 16);
-        mma16816(dp[j], da, vf);
-      }
-    }
-    // p = exp(s * scale - lse); ds = p * (dp - delta) * scale, into s
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float p = 0.0f;
-        if (qrow[r] < a.S) {
-          float x = s[j][e] * a.scale;
-          if (!visible(a, b, qrow[r], k0 + j * 8 + 2 * t + (e & 1)))
-            x = NEG_INF;
-          p = expf(x - lse[r]);
-        }
-        s[j][e] = p * (dp[j][e] - delta[r]) * a.scale;
-      }
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t dsa[4];
-      acc_as_a(dsa, s, kk);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t kf[2];
-        frag_b(kf, sK, LD, kk * 16, n * 8);
-        mma16816(dq[n], dsa, kf);
-      }
-    }
-  }
-  store_acc<D>(a.dq, a, b, h, q0 + r0, dq);
+// a warpgroup's own barrier (128 threads; named barriers 1 and 2)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
-// K2, bf16. Block = (128 keys, batch x head); warp w owns keys
-// 16w..16w+15 and streams 32-query tiles from the diagonal. It computes
-// the transposed products s^T = K Q^T and dp^T = V dO^T, so that p^T and
-// ds^T are the A operands of dV += p^T dO and dK += ds^T Q.
-template <int D>
-__global__ void __launch_bounds__(NT, TC_BLOCKS(D)) flash_bwd_dkdv_bf16(Args a) {
-  constexpr int BN = TC_ROWS, BQ = TC_QROWS, LD = D + TC_PAD;
-  constexpr int NJ = BQ / 8, ND = D / 8, KD = D / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BN * LD;
-  bf16* sQ = sV + BN * LD;
-  bf16* sDO = sQ + BQ * LD;
-  float* sLse = reinterpret_cast<float*>(sDO + BQ * LD);
-  float* sDelta = sLse + BQ;
-
-  const int n_q = (a.S + BQ - 1) / BQ;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.x * BN, r0 = (threadIdx.x >> 5) * 16;
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int krow[2] = {k0 + r0 + g, k0 + r0 + g + 8};
-  const bf16* gq = slice<bf16>(a.q, a.sq, b, h);
-  const bf16* gdo = slice<bf16>(a.dout, a.sdo, b, h);
-
-  load_tile<bf16, D>(sK, LD, slice<bf16>(a.k, a.sk, b, h), a.sk[1], k0, BN,
-                     a.S);
-  load_tile<bf16, D>(sV, LD, slice<bf16>(a.v, a.sv, b, h), a.sv[1], k0, BN,
-                     a.S);
-  float dk[ND][4] = {}, dv[ND][4] = {};
-  // causal: query tiles strictly before the diagonal see no key here
-  const int first = a.causal ? k0 / BQ : 0;
-  for (int qb = first; qb < n_q; ++qb) {
-    const int q0 = qb * BQ;
-    __syncthreads();
-    load_tile<bf16, D>(sQ, LD, gq, a.sq[1], q0, BQ, a.S);
-    load_tile<bf16, D>(sDO, LD, gdo, a.sdo[1], q0, BQ, a.S);
-    for (int i = threadIdx.x; i < BQ; i += NT) {
-      const bool ok = q0 + i < a.S;
-      sLse[i] = ok ? a.lse_in[(long long)bh * a.S + q0 + i] : 0.0f;
-      sDelta[i] = ok ? a.delta[(long long)bh * a.S + q0 + i] : 0.0f;
-    }
-    __syncthreads();
-    // every query of the tile precedes this warp's keys: nothing to add
-    if (a.causal && k0 + r0 > q0 + BQ - 1) continue;
-    float st[NJ][4] = {}, dpt[NJ][4] = {};
+// acc[64 x 64] = A . B^T over DP columns: A the warpgroup's 64 rows of an
+// own tile, B a streamed tile of 64 rows, both read K-major from shared
+// memory
+template <int DP>
+__device__ __forceinline__ void score_product(float (&acc)[BW_TILE / 8][4],
+                                              uint32_t own, int wg,
+                                              uint32_t tile) {
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t ka[4], va[4];
-      frag_a(ka, sK, LD, r0, kk * 16);
-      frag_a(va, sV, LD, r0, kk * 16);
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint64_t da = desc_sw128(own + (kk >> 2) * BW_ROWS * 128 +
+                                   wg * 64 * 128 + 32 * (kk & 3));
+    const uint64_t db =
+        desc_sw128(tile + (kk >> 2) * BW_TILE * 128 + 32 * (kk & 3));
+    wgmma_ss_n64(acc, da, db, kk > 0);
+  }
+}
+
+// acc[64 x DP] += A . B: A the bf16 fragments a of K columns, B the
+// streamed tile (K rows) read MN-major
+template <int DP, int K>
+__device__ __forceinline__ void accumulate_product(float (&acc)[DP / 8][4],
+                                                   uint32_t (&a)[K / 16][4],
+                                                   uint32_t tile) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint64_t db = desc_sw128_mn(tile + kk * 16 * 128, K * 128);
+    if constexpr (DP == 64) wgmma_n64<1>(acc, a[kk], db);
+    else wgmma_n128<1>(acc, a[kk], db);
+  }
+}
+
+// a warpgroup's 64 x DP accumulator, rounded to bf16, into its staging
+// tile (64-row swizzled panels) and out by a TMA store to rows [row0,
+// row0 + 64) of (b, h), clipped at S and at head_dim. The issuing thread
+// first waits until its previous store has read the tile.
+template <int DP>
+__device__ __forceinline__ void store_wg(float (&acc)[DP / 8][4],
+                                         uint8_t* stage, const CUtensorMap* m,
+                                         int b, int h, int row0, int wg,
+                                         int wrow, int t, bool issuer) {
+  if (issuer) tma_store_wait_read();
+  wg_sync(wg);
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    uint8_t* panel = stage + (j >> 3) * (64 * 128);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<uint32_t*>(panel + swz128(wrow + 8 * hh, j & 7) +
+                                   4 * t) =
+          pack2f(acc[j][2 * hh], acc[j][2 * hh + 1]);
+  }
+  fence_proxy_async();
+  wg_sync(wg);
+  if (issuer) {
+#pragma unroll
+    for (int p = 0; p < DP / 64; ++p)
+      tma_store_4d(m, 64 * p, h, row0, b, smem_u32(stage + p * 64 * 128));
+    tma_store_commit();
+  }
+}
+
+// K3, bf16: items of 128 queries, every head's last tile first; the ring
+// streams 64-key K and V tiles up to the diagonal. Per tile and
+// warpgroup: S = Q K^T and dP = dO V^T (K, V read K-major); p =
+// exp2(S scale log2(e) - lse log2(e)); dS = p (dP - delta) scale, rounded
+// to bf16 in registers as the A operand of dQ += dS K (K read MN-major).
+template <int D>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+    flash_bwd_dq_wg(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap domap,
+                    const __grid_constant__ CUtensorMap dqmap, const Args a) {
+  typedef BwGeom<D> G;
+  constexpr int BN = BW_TILE, ST = G::DQ_STAGES, T = G::TILE_BYTES;
+  constexpr int OB = G::DQ_OWN;
+  constexpr int NJ = BN / 8, ND = G::DP / 8;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  // own buffer o: Q at base + 2 o OWN_BYTES, dO after it
+  const uint32_t sKV = base + 2 * OB * G::OWN_BYTES;
+  const uint32_t sOut = sKV + ST * 2 * T;
+  const uint32_t full = sOut + 2 * G::OUT_BYTES, empty = full + 8 * ST;
+  const uint32_t own_full = empty + 8 * ST, own_empty = own_full + 8 * OB;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_q = (a.S + BW_ROWS - 1) / BW_ROWS, n_k = (a.S + BN - 1) / BN;
+  const int BH = a.B * a.H, items = n_q * BH;
+
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, BW_CONSUMERS / 32);
+    }
+    for (int o = 0; o < OB; ++o) {
+      mbar_init(own_full + 8 * o, 1);
+      mbar_init(own_empty + 8 * o, BW_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // item -> (query tile, batch x head): every head's last tile first
+  auto origin = [&](int item, int& q0, int& bh, int& last) {
+    const int r = item / BH;
+    bh = item - r * BH;
+    q0 = (a.causal ? n_q - 1 - r : r) * BW_ROWS;
+    last = a.causal ? min(n_k, (q0 + BW_ROWS - 1) / BN + 1) : n_k;
+  };
+
+  if (warp >= BW_CONSUMERS / 32) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp != BW_CONSUMERS / 32 || lane != 0) return;
+    int s = 0, ph = 0, n = 0;
+    bool reuse = false;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      int q0, bh, last;
+      origin(item, q0, bh, last);
+      const int b = bh / a.H, h = bh - b * a.H;
+      // Q and dO once an item, into the buffer the consumers have left
+      const int o = n % OB;
+      const uint32_t sQ = base + 2 * o * G::OWN_BYTES;
+      const uint32_t sDO = sQ + G::OWN_BYTES, of = own_full + 8 * o;
+      if (n >= OB) mbar_wait(own_empty + 8 * o, (n / OB - 1) & 1);
+      mbar_expect_tx(of, 2 * G::OWN_BYTES);
+#pragma unroll
+      for (int p = 0; p < G::PANELS; ++p) {
+        tma_load_4d(sQ + p * BW_ROWS * 128, &qmap, 64 * p, h, q0, b, of);
+        tma_load_4d(sDO + p * BW_ROWS * 128, &domap, 64 * p, h, q0, b, of);
+      }
+      for (int kb = 0; kb < last; ++kb) {
+        if (reuse) mbar_wait(empty + 8 * s, ph ^ 1);
+        const uint32_t kt = sKV + s * 2 * T;
+        mbar_expect_tx(full + 8 * s, 2 * T);
+#pragma unroll
+        for (int p = 0; p < G::PANELS; ++p) {
+          tma_load_4d(kt + p * BN * 128, &kmap, 64 * p, h, kb * BN, b,
+                      full + 8 * s);
+          tma_load_4d(kt + T + p * BN * 128, &vmap, 64 * p, h, kb * BN, b,
+                      full + 8 * s);
+        }
+        if (++s == ST) s = 0, ph ^= 1, reuse = true;
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the item;
+  // this thread's accumulator rows are 16 wl + g and + 8 of them
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const bool issuer = (tid & 127) == 0;
+  const float sl2 = a.scale * LOG2E;
+  uint8_t* stage = smem_raw + (sOut - raw) + wg * G::OUT_BYTES;
+  int s = 0, ph = 0, n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    int q0, bh, last;
+    origin(item, q0, bh, last);
+    const int b = bh / a.H, h = bh - b * a.H;
+    const int qw0 = q0 + wg * 64;
+    const int qrow[2] = {qw0 + wl * 16 + g, qw0 + wl * 16 + g + 8};
+    // causal: the key tiles that reach this warpgroup's rows
+    const int last_wg = a.causal ? min(last, (qw0 + 63) / BN + 1) : last;
+    const int* seg = a.seg ? a.seg + (long long)b * a.S : nullptr;
+    float lse2[2], dlt[2];
+    int qseg[2] = {0, 0};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = qrow[r] < a.S;
+      const long long o = (long long)bh * a.S + qrow[r];
+      lse2[r] = in ? a.lse_in[o] * LOG2E : 0.f;
+      dlt[r] = in ? a.delta[o] : 0.f;
+      if (seg) qseg[r] = seg[min(qrow[r], a.S - 1)];
+    }
+    const int o = n % OB;
+    const uint32_t sQ = base + 2 * o * G::OWN_BYTES;
+    const uint32_t sDO = sQ + G::OWN_BYTES;
+    mbar_wait(own_full + 8 * o, (n / OB) & 1);
+    float dq[ND][4];
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+    float sc[NJ][4], dp[NJ][4];
+    uint32_t dsa[BN / 16][4];
+    // S and dP of the tile in slot sl (committed, not waited for)
+    auto scores = [&](int sl) {
+      const uint32_t kt = sKV + sl * 2 * T;
+      wgmma_fence();
+      score_product<G::DP>(sc, sQ, wg, kt);
+      score_product<G::DP>(dp, sDO, wg, kt + T);
+      wgmma_commit();
+    };
+    // dS of the tile at key k0 into sc, fp32; masks only where the tile
+    // crosses the diagonal or S, or under segments
+    auto grads = [&](int k0) {
+      const bool edge =
+          (a.causal && k0 + BN - 1 > qw0) || k0 + BN > a.S || seg;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + j * 8 + 2 * t + e;
+          const bool kin = key < a.S;
+          const int ks = (edge && seg && kin) ? seg[key] : 0;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float p = ex2(fmaf(sc[j][2 * r + e], sl2, -lse2[r]));
+            if (edge && (!kin || (a.causal && key > qrow[r]) ||
+                         (seg && ks != qseg[r])))
+              p = 0.f;
+            sc[j][2 * r + e] = p * (dp[j][2 * r + e] - dlt[r]) * a.scale;
+          }
+        }
+    };
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) acc_as_a(dsa[kk], sc, kk);
+    };
+    // dQ += dS K of the tile in slot sl (committed, not waited for)
+    auto accumulate = [&](int sl) {
+      accumulate_product<G::DP, BN>(dq, dsa, sKV + sl * 2 * T);
+      wgmma_commit();
+    };
+    auto release = [&](int sl) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * sl);
+    };
+    auto advance = [&]() {
+      if (++s == ST) s = 0, ph ^= 1;
+    };
+    // the first tile (every warpgroup has one): its scores alone
+    mbar_wait(full + 8 * s, ph);
+    scores(s);
+    wgmma_wait0();
+    grads(0);
+    pack();
+    int ps = s;  // the slot whose dS is packed
+    advance();
+    // every further tile: its scores, and behind them the previous
+    // tile's dQ product, under which this tile's dS is computed
+    int kb = 1;
+    for (; kb < last_wg; ++kb) {
+      mbar_wait(full + 8 * s, ph);
+      scores(s);
+      accumulate(ps);
+      wgmma_wait1();
+      grads(kb * BN);
+      wgmma_wait0();
+      release(ps);
+      pack();
+      ps = s;
+      advance();
+    }
+    // the last tile's dQ product
+    wgmma_fence();
+    accumulate(ps);
+    wgmma_wait0();
+    release(ps);
+    for (; kb < last; ++kb) {  // beyond this warpgroup's rows
+      mbar_wait(full + 8 * s, ph);
+      release(s);
+      advance();
+    }
+    // the item's own tiles read for the last time
+    __syncwarp();
+    if (lane == 0) mbar_arrive(own_empty + 8 * o);
+    store_wg<G::DP>(dq, stage, &dqmap, b, h, qw0, wg, wl * 16 + g, t, issuer);
+  }
+  if (issuer) tma_store_wait_all();
+}
+
+// K2, bf16: items of 128 keys, key tile 0 first (under causal masking it
+// sees the most queries); the ring streams 64-query Q and dO tiles from
+// the diagonal, each with its queries' lse * log2(e), delta and segment
+// id, which the producer warp writes beside it. Per tile and warpgroup,
+// the transposed products: S^T = K Q^T and dP^T = V dO^T (Q, dO read
+// K-major); p^T and dS^T rounded to bf16 in registers as the A operands
+// of dV += p^T dO and dK += dS^T Q (the same dO and Q tiles read
+// MN-major). A query past S contributes nothing: its p is masked to 0
+// (TMA zero-fills its Q and dO rows; its padded statistics are zeros).
+template <int D>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+    flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap domap,
+                      const __grid_constant__ CUtensorMap dkmap,
+                      const __grid_constant__ CUtensorMap dvmap,
+                      const Args a) {
+  typedef BwGeom<D> G;
+  constexpr int BQ = BW_TILE, ST = G::KV_STAGES, T = G::TILE_BYTES;
+  constexpr int OB = G::KV_OWN;
+  constexpr int NJ = BQ / 8, ND = G::DP / 8;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  // own buffer o: K at base + 2 o OWN_BYTES, V after it
+  const uint32_t sQD = base + 2 * OB * G::OWN_BYTES;
+  const uint32_t sOut = sQD + ST * 2 * T;
+  const uint32_t sStat = sOut + 4 * G::OUT_BYTES;
+  const uint32_t full = sStat + ST * G::STAT_BYTES, empty = full + 8 * ST;
+  const uint32_t own_full = empty + 8 * ST, own_empty = own_full + 8 * OB;
+  float* stats = reinterpret_cast<float*>(smem_raw + (sStat - raw));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_k = (a.S + BW_ROWS - 1) / BW_ROWS, n_q = (a.S + BQ - 1) / BQ;
+  const int BH = a.B * a.H, items = n_k * BH;
+
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      // the copy's arrival and the producer warp's 32 (statistics)
+      mbar_init(full + 8 * i, 33);
+      mbar_init(empty + 8 * i, BW_CONSUMERS / 32);
+    }
+    for (int o = 0; o < OB; ++o) {
+      mbar_init(own_full + 8 * o, 1);
+      mbar_init(own_empty + 8 * o, BW_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // item -> (key tile, batch x head); causal: the first query tile that
+  // reaches the item's keys
+  auto origin = [&](int item, int& k0, int& bh, int& first) {
+    const int r = item / BH;
+    bh = item - r * BH;
+    k0 = r * BW_ROWS;
+    first = a.causal ? k0 / BQ : 0;
+  };
+
+  if (warp >= BW_CONSUMERS / 32) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp != BW_CONSUMERS / 32) return;
+    int s = 0, ph = 0, n = 0;
+    bool reuse = false;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      int k0, bh, first;
+      origin(item, k0, bh, first);
+      const int b = bh / a.H, h = bh - b * a.H;
+      const float* lse = a.lse_in + (long long)bh * a.S;
+      const float* delta = a.delta + (long long)bh * a.S;
+      const int* seg = a.seg ? a.seg + (long long)b * a.S : nullptr;
+      if (lane == 0) {
+        // K and V once an item, into the buffer the consumers have left
+        const int o = n % OB;
+        const uint32_t sK = base + 2 * o * G::OWN_BYTES;
+        const uint32_t sV = sK + G::OWN_BYTES, of = own_full + 8 * o;
+        if (n >= OB) mbar_wait(own_empty + 8 * o, (n / OB - 1) & 1);
+        mbar_expect_tx(of, 2 * G::OWN_BYTES);
+#pragma unroll
+        for (int p = 0; p < G::PANELS; ++p) {
+          tma_load_4d(sK + p * BW_ROWS * 128, &kmap, 64 * p, h, k0, b, of);
+          tma_load_4d(sV + p * BW_ROWS * 128, &vmap, 64 * p, h, k0, b, of);
+        }
+      }
+      for (int qb = first; qb < n_q; ++qb) {
+        if (reuse) mbar_wait(empty + 8 * s, ph ^ 1);
+        const uint32_t qt = sQD + s * 2 * T;
+        if (lane == 0) {
+          mbar_expect_tx(full + 8 * s, 2 * T);
+#pragma unroll
+          for (int p = 0; p < G::PANELS; ++p) {
+            tma_load_4d(qt + p * BQ * 128, &qmap, 64 * p, h, qb * BQ, b,
+                        full + 8 * s);
+            tma_load_4d(qt + T + p * BQ * 128, &domap, 64 * p, h, qb * BQ,
+                        b, full + 8 * s);
+          }
+        }
+        float* col = stats + s * (3 * BQ);
+        for (int i = lane; i < BQ; i += 32) {
+          const int q = qb * BQ + i;
+          const bool in = q < a.S;
+          col[i] = in ? lse[q] * LOG2E : 0.f;
+          col[BQ + i] = in ? delta[q] : 0.f;
+          col[2 * BQ + i] = __int_as_float(seg ? seg[min(q, a.S - 1)] : 0);
+        }
+        mbar_arrive(full + 8 * s);
+        if (++s == ST) s = 0, ph ^= 1, reuse = true;
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  // consumers: warpgroup wg owns keys [64 wg, 64 wg + 64) of the item;
+  // this thread's accumulator rows are keys 16 wl + g and + 8 of them,
+  // its columns the queries j * 8 + 2 t and + 1 of a tile
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const bool issuer = (tid & 127) == 0;
+  const float sl2 = a.scale * LOG2E;
+  uint8_t* stage_k = smem_raw + (sOut - raw) + wg * 2 * G::OUT_BYTES;
+  uint8_t* stage_v = stage_k + G::OUT_BYTES;
+  int s = 0, ph = 0, n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    int k0, bh, first;
+    origin(item, k0, bh, first);
+    const int b = bh / a.H, h = bh - b * a.H;
+    const int kw0 = k0 + wg * 64;
+    const int krow[2] = {kw0 + wl * 16 + g, kw0 + wl * 16 + g + 8};
+    // causal: the first query tile that reaches this warpgroup's keys
+    // (the last tile for keys wholly past S, whose rows the stores clip)
+    const int first_wg = a.causal ? min(kw0 / BQ, n_q - 1) : first;
+    const int* seg = a.seg ? a.seg + (long long)b * a.S : nullptr;
+    int kseg[2] = {0, 0};
+    if (seg)
+      for (int r = 0; r < 2; ++r) kseg[r] = seg[min(krow[r], a.S - 1)];
+    const int o = n % OB;
+    const uint32_t sK = base + 2 * o * G::OWN_BYTES;
+    const uint32_t sV = sK + G::OWN_BYTES;
+    mbar_wait(own_full + 8 * o, (n / OB) & 1);
+    float dk[ND][4], dv[ND][4];
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+    float st[NJ][4], dpt[NJ][4];
+    uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+    // S^T and dP^T of the tile in slot sl (committed, not waited for)
+    auto scores = [&](int sl) {
+      const uint32_t qt = sQD + sl * 2 * T;
+      wgmma_fence();
+      score_product<G::DP>(st, sK, wg, qt);
+      score_product<G::DP>(dpt, sV, wg, qt + T);
+      wgmma_commit();
+    };
+    // p^T into st and dS^T into dpt, fp32, for the tile at query q0 in
+    // slot sl; masks only where the tile crosses the diagonal or S, or
+    // under segments
+    auto grads = [&](int q0, int sl) {
+      const float* col = stats + sl * (3 * BQ);
+      const bool edge =
+          (a.causal && q0 < kw0 + 63) || q0 + BQ > a.S || seg;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        uint32_t qf[2], df[2];
-        frag_bt(qf, sQ, LD, j * 8, kk * 16);
-        mma16816(st[j], ka, qf);
-        frag_bt(df, sDO, LD, j * 8, kk * 16);
-        mma16816(dpt[j], va, df);
-      }
-    }
-    // p^T into st, ds^T into dpt; a query past S contributes nothing
+        const int c = j * 8 + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(col + c);
+        const float2 dl = *reinterpret_cast<const float2*>(col + BQ + c);
+        const float2 sg = *reinterpret_cast<const float2*>(col + 2 * BQ + c);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+        for (int e = 0; e < 2; ++e) {
+          const int q = q0 + c + e;
+          const float lq = e ? l2.y : l2.x, dlq = e ? dl.y : dl.x;
+          const int qs = __float_as_int(e ? sg.y : sg.x);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * t + (e & 1), qpos = q0 + c;
-        float p = 0.0f;
-        if (qpos < a.S) {
-          float x = st[j][e] * a.scale;
-          if (!visible(a, b, qpos, krow[e >> 1])) x = NEG_INF;
-          p = expf(x - sLse[c]);
+          for (int r = 0; r < 2; ++r) {
+            float p = ex2(fmaf(st[j][2 * r + e], sl2, -lq));
+            if (edge && (q >= a.S || (a.causal && krow[r] > q) ||
+                         (seg && qs != kseg[r])))
+              p = 0.f;
+            dpt[j][2 * r + e] = p * (dpt[j][2 * r + e] - dlq) * a.scale;
+            st[j][2 * r + e] = p;
+          }
         }
-        dpt[j][e] = p * (dpt[j][e] - sDelta[c]) * a.scale;
-        st[j][e] = p;
       }
+    };
+    auto pack = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pa[4], dsa[4];
-      acc_as_a(pa, st, kk);
-      acc_as_a(dsa, dpt, kk);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t df[2], qf[2];
-        frag_b(df, sDO, LD, kk * 16, n * 8);
-        mma16816(dv[n], pa, df);
-        frag_b(qf, sQ, LD, kk * 16, n * 8);
-        mma16816(dk[n], dsa, qf);
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        acc_as_a(pa[kk], st, kk);
+        acc_as_a(dsa[kk], dpt, kk);
       }
+    };
+    // dV += p^T dO and dK += dS^T Q of the tile in slot sl (committed,
+    // not waited for)
+    auto accumulate = [&](int sl) {
+      const uint32_t qt = sQD + sl * 2 * T;
+      accumulate_product<G::DP, BQ>(dv, pa, qt + T);
+      accumulate_product<G::DP, BQ>(dk, dsa, qt);
+      wgmma_commit();
+    };
+    auto release = [&](int sl) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * sl);
+    };
+    auto advance = [&]() {
+      if (++s == ST) s = 0, ph ^= 1;
+    };
+    int qb = first;
+    for (; qb < first_wg; ++qb) {  // before this warpgroup's keys
+      mbar_wait(full + 8 * s, ph);
+      release(s);
+      advance();
     }
+    // the first tile (every warpgroup has one): its scores alone
+    mbar_wait(full + 8 * s, ph);
+    scores(s);
+    wgmma_wait0();
+    grads(qb * BQ, s);
+    pack();
+    int ps = s;  // the slot whose p^T and dS^T are packed
+    advance();
+    // every further tile: its scores, and behind them the previous
+    // tile's dV and dK products, under which this tile's p^T and dS^T
+    // are computed (at head_dim 128 one after the other: the dK/dV
+    // accumulators leave no registers for two tiles' fragments)
+    for (++qb; qb < n_q; ++qb) {
+      mbar_wait(full + 8 * s, ph);
+      if constexpr (G::DP == 64) {
+        scores(s);
+        accumulate(ps);
+        wgmma_wait1();
+        grads(qb * BQ, s);
+        wgmma_wait0();
+      } else {
+        wgmma_fence();
+        accumulate(ps);
+        wgmma_wait0();
+        scores(s);
+        wgmma_wait0();
+        grads(qb * BQ, s);
+      }
+      release(ps);
+      pack();
+      ps = s;
+      advance();
+    }
+    // the last tile's dV and dK products
+    wgmma_fence();
+    accumulate(ps);
+    wgmma_wait0();
+    release(ps);
+    // the item's own tiles read for the last time
+    __syncwarp();
+    if (lane == 0) mbar_arrive(own_empty + 8 * o);
+    // keys past S (a ragged last item) are clipped by the stores
+    store_wg<G::DP>(dk, stage_k, &dkmap, b, h, kw0, wg, wl * 16 + g, t,
+                    issuer);
+    store_wg<G::DP>(dv, stage_v, &dvmap, b, h, kw0, wg, wl * 16 + g, t,
+                    issuer);
   }
-  store_acc<D>(a.dk, a, b, h, k0 + r0, dk);
-  store_acc<D>(a.dv, a, b, h, k0 + r0, dv);
+  if (issuer) tma_store_wait_all();
 }
 
 // ===========================================================================
@@ -996,21 +1423,54 @@ static int launch_fwd_wg(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// K2 (dk, dv) or K3 (dq): the outputs are the wrapper's contiguous
+// [b, s, h, d] tensors
+template <int D>
+static int launch_bwd_wg(Which w, const Args& a, cudaStream_t stream) {
+  typedef BwGeom<D> G;
+  const bool dq = w == DQ;
+  const int smem = dq ? G::DQ_SMEM : G::KV_SMEM;
+  cudaError_t e =
+      dq ? cudaFuncSetAttribute(flash_bwd_dq_wg<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem)
+         : cudaFuncSetAttribute(flash_bwd_dkdv_wg<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+  if (e != cudaSuccess) return (int)e;
+  // K3 stages Q and dO an item and streams K, V; K2 the other way round
+  const int qrows = dq ? BW_ROWS : BW_TILE, krows = dq ? BW_TILE : BW_ROWS;
+  const long long so[3] = {(long long)a.S * a.H * D, (long long)a.H * D, D};
+  CUtensorMap qm, km, vm, dom, o1, o2;
+  if (!bshd_map(&qm, a.q, a.sq, a, D, qrows) ||
+      !bshd_map(&km, a.k, a.sk, a, D, krows) ||
+      !bshd_map(&vm, a.v, a.sv, a, D, krows) ||
+      !bshd_map(&dom, a.dout, a.sdo, a, D, qrows) ||
+      !bshd_map(&o1, dq ? a.dq : a.dk, so, a, D, 64) ||
+      (!dq && !bshd_map(&o2, a.dv, so, a, D, 64)))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const long long items =
+      (long long)((a.S + BW_ROWS - 1) / BW_ROWS) * a.B * a.H;
+  if (items >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const int grid = items < sms ? (int)items : sms;
+  if (dq)
+    flash_bwd_dq_wg<D><<<grid, BW_THREADS, smem, stream>>>(qm, km, vm, dom,
+                                                           o1, a);
+  else
+    flash_bwd_dkdv_wg<D><<<grid, BW_THREADS, smem, stream>>>(qm, km, vm, dom,
+                                                             o1, o2, a);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 static int run_bf16(Which w, const Args& a, cudaStream_t stream) {
-  constexpr size_t row = (D + TC_PAD) * sizeof(bf16);
-  switch (w) {
-    case FWD:
-      return launch_fwd_wg<D>(a, stream);
-    case DKDV:
-      return launch(flash_bwd_dkdv_bf16<D>,
-                    (2 * TC_ROWS + 2 * TC_QROWS) * row +
-                        2 * TC_QROWS * sizeof(float),
-                    TC_ROWS, a, stream);
-    default:
-      return launch(flash_bwd_dq_bf16<D>, (2 * TC_ROWS + 2 * TC_KEYS) * row,
-                    TC_ROWS, a, stream);
-  }
+  return w == FWD ? launch_fwd_wg<D>(a, stream)
+                  : launch_bwd_wg<D>(w, a, stream);
 }
 
 template <int D>

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA/wgmma bodies
 // (fused_conv.cu conv_tc, quant_matmul.cu qmm_wg, flash_attention.cu
-// flash_fwd_wg): mbarriers, TMA tensor copies and stores, the 128-byte
-// swizzle, wgmma descriptors and m64nNk16 products with A from registers,
-// and the driver's tensor-map encoder reached through the runtime.
+// flash_fwd_wg, flash_bwd_dq_wg, flash_bwd_dkdv_wg): mbarriers, TMA
+// tensor copies and stores, the 128-byte swizzle, wgmma descriptors,
+// m64nNk16 products with A from registers (and m64n64k16 with A from
+// shared memory), and the driver's tensor-map encoder reached through
+// the runtime.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from cudart
@@ -75,6 +77,22 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* m, int c0,
       "[%3];\n" ::"l"(reinterpret_cast<uint64_t>(m)),
       "r"(c0), "r"(c1), "r"(src)
       : "memory");
+}
+// a 64-column panel of rows of one (batch, head) of a [b, s, h, d]
+// tensor, clipped at the tensor's edges
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* m, int c0,
+                                             int c1, int c2, int c3,
+                                             uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(reinterpret_cast<uint64_t>(m)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
+      : "memory");
+}
+// shared-memory writes of the generic proxy made visible to the copy
+// engine (a TMA store reading them next)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -254,6 +272,33 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[32][4],
         "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc),
         "n"(TB));
+}
+
+// d[64 x 64] += A[64 x 16] . B[16 x 64], both from shared memory
+// (descriptors): A K-major (each of its 64 rows holds k contiguous), B as
+// for wgmma_n64. For the products whose A is a tile staged for a whole
+// item, where registers cannot hold it beside the accumulators.
+template <int TB = 0>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4],
+                                             uint64_t desc_a,
+                                             uint64_t desc_b, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(acc), "n"(TB));
 }
 
 template <int TN>

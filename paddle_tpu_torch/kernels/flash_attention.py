@@ -7,10 +7,10 @@ TPU kernel of the JAX package:
 - ``flash_fwd`` (K1, ``_flash_fwd``): online-softmax attention with the
   causal tile skip and the segment-id mask; writes ``out`` and the
   per-row log-sum-exp;
-- ``flash_bwd_dkdv`` (K2, ``_flash_bwd`` dK/dV pass): one block per key
-  tile, looping over the query tiles from the diagonal;
-- ``flash_bwd_dq`` (K3, ``_flash_bwd`` dQ pass): one block per query
-  tile, looping over the key tiles up to the diagonal.
+- ``flash_bwd_dkdv`` (K2, ``_flash_bwd`` dK/dV pass): items of 128 keys,
+  streaming the query tiles from the diagonal;
+- ``flash_bwd_dq`` (K3, ``_flash_bwd`` dQ pass): items of 128 queries,
+  streaming the key tiles up to the diagonal.
 
 One ``torch.autograd.Function`` holds them: the forward is K1 and saves
 ``q, k, v, out, lse``; the backward computes ``delta = rowsum(dO * O)``
@@ -27,9 +27,11 @@ For tensors on the CPU the function runs the plain versions
 ``flash_attention_fwd_ref`` / ``flash_attention_bwd_ref``, which compute
 the kernel bodies' formulas over whole rows. For CUDA tensors it
 launches the kernels or raises; there is no fallback. ``LAUNCHES``
-counts each kernel's launches and ``BODY_LAUNCHES`` K1's by body
-(``fwd_body``): ``wgmma`` (bf16: a persistent TMA ring and wgmma
-products) and ``simt`` (fp32).
+counts each kernel's launches and ``BODY_LAUNCHES`` each launch by kernel
+and body (``fwd_body``, ``bwd_body``): ``wgmma`` in bf16 (one persistent
+block per SM, a producer warp keeping TMA copies in flight, the products
+on wgmma; every pass) and ``simt`` in fp32 (plain FMA from shared-memory
+tiles, the card-against-CPU parity path).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from ._build import load_library
 
 __all__ = ["flash_attention", "flash_attn_varlen", "flash_attention_lse",
            "flash_attention_fwd_ref", "flash_attention_bwd_ref", "fwd_body",
+           "bwd_body",
            "LAUNCHES", "BODY_LAUNCHES", "reset_counters", "HEAD_DIMS",
            "NEG_INF"]
 
@@ -51,7 +54,7 @@ NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
-BODY_LAUNCHES: Counter = Counter()   # "flash_fwd/<body>"
+BODY_LAUNCHES: Counter = Counter()   # "<kernel>/<body>"
 
 
 def reset_counters() -> None:
@@ -62,6 +65,13 @@ def reset_counters() -> None:
 
 def fwd_body(dtype) -> str:
     """The body of ``csrc/flash_attention.cu`` a K1 launch takes."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+def bwd_body(dtype) -> str:
+    """The body of ``csrc/flash_attention.cu`` a K2 or K3 launch takes:
+    ``flash_bwd_dkdv_wg`` / ``flash_bwd_dq_wg`` in bf16 at every head_dim,
+    the fp32 SIMT bodies otherwise."""
     return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
@@ -213,6 +223,7 @@ def _launch_bwd_kernel(name: str, q, k, v, seg, do, lse, delta,
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
     LAUNCHES[name] += 1
+    BODY_LAUNCHES[f"{name}/{bwd_body(q.dtype)}"] += 1
     return tuple(outs) if len(outs) == 2 else outs[0]
 
 

@@ -156,3 +156,25 @@ def test_forward_body_routing(dtype, body):
     """K1's body by dtype: the wgmma body serves bf16 at every head_dim
     (32 computed as 64 zero-filled columns), plain FMA fp32."""
     assert tfa.fwd_body(dtype) == body
+
+
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "wgmma"),
+                                        (torch.float32, "simt")])
+def test_backward_body_routing(dtype, body):
+    """K2's and K3's body by dtype: the wgmma bodies serve bf16 at every
+    head_dim (the item's own tiles from shared memory at 128), plain FMA
+    fp32."""
+    assert tfa.bwd_body(dtype) == body
+
+
+def test_cpu_backward_counts_no_launch():
+    """On the CPU the backward runs the plain version: no kernel and no
+    body is counted."""
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(1, 16, 2, 32).astype(np.float32))
+               .requires_grad_(True) for _ in range(3))
+    tfa.reset_counters()
+    tfa.flash_attention(q, k, v).sum().backward()
+    assert all(n == 0 for n in tfa.LAUNCHES.values())
+    assert not tfa.BODY_LAUNCHES
+    assert q.grad is not None and torch.isfinite(q.grad).all()

@@ -178,6 +178,104 @@ def test_flash_fwd_reads_a_fused_qkv_view(d):
     torch.testing.assert_close(lse, want_lse, atol=atol, rtol=0)
 
 
+def _flash_bwd_inputs(q, k, v, do, dlse, seg, causal):
+    """The backward kernels' inputs from K1's own forward: (lse, delta)."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+
+    out, lse = tfa._launch_fwd(q, k, v, seg, causal, 1.0 / np.sqrt(q.shape[-1]))
+    return out, lse, tfa._delta(out, do, dlse)
+
+
+def _flash_bwd(q, k, v, do, seg, lse, delta, causal):
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    dk, dv = tfa._launch_bwd_kernel("flash_bwd_dkdv", q, k, v, seg, do, lse,
+                                    delta, causal, scale)
+    dq = tfa._launch_bwd_kernel("flash_bwd_dq", q, k, v, seg, do, lse, delta,
+                                causal, scale)
+    return dq, dk, dv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 200, 1024])
+@pytest.mark.parametrize("causal,with_seg", [(True, False), (False, False),
+                                             (True, True)])
+def test_flash_bwd_bodies_match_plain(s, d, causal, with_seg):
+    """K2 and K3 in bf16 at every head_dim, short and ragged lengths,
+    causal or not, with segments, with a nonzero LSE cotangent: dq, dk
+    and dv against the plain version, every launch on the wgmma bodies."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+
+    require_cuda()
+    rng = np.random.RandomState(7 * s + d + causal)
+    shape = (2, s, 3, d)
+    q, k, v, do, dlse, seg = _flash_case(rng, shape, torch.bfloat16,
+                                         with_seg and s > 4)
+    out, lse, delta = _flash_bwd_inputs(q, k, v, do, dlse, seg, causal)
+    tfa.reset_counters()
+    got = _flash_bwd(q, k, v, do, seg, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert dict(tfa.BODY_LAUNCHES) == {"flash_bwd_dkdv/wgmma": 1,
+                                       "flash_bwd_dq/wgmma": 1}
+    want = tfa.flash_attention_bwd_ref(q, k, v, seg, out, lse, do, causal,
+                                       1.0 / np.sqrt(d), dlse)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g.float(), w.float(),
+                                   atol=ATOL[torch.bfloat16], rtol=0,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_bwd_reads_a_fused_qkv_view(d):
+    """The backward through autograd with q, k and v as strided views of
+    one fused [b, s, 3 h d] projection: the wgmma bodies read them in
+    place, and the gradients land in the fused tensor's gradient."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+
+    require_cuda()
+    rng = np.random.RandomState(10 + d)
+    b, s, h = 2, 300, 4
+    qkv = _cuda(rng, (b, s, 3 * h * d), torch.bfloat16).requires_grad_(True)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, s, h, d)
+               for i in range(3))
+    assert not q.is_contiguous() and tfa._strided(q) is q
+    do = _cuda(rng, (b, s, h, d), torch.bfloat16)
+    tfa.reset_counters()
+    tfa.flash_attention(q, k, v, causal=True).backward(do)
+    torch.cuda.synchronize()
+    assert tfa.BODY_LAUNCHES["flash_bwd_dkdv/wgmma"] == 1
+    assert tfa.BODY_LAUNCHES["flash_bwd_dq/wgmma"] == 1
+    qc, kc, vc = (t.detach().contiguous() for t in (q, k, v))
+    out, lse = tfa.flash_attention_fwd_ref(qc, kc, vc, None, True,
+                                           1.0 / np.sqrt(d))
+    want = tfa.flash_attention_bwd_ref(qc, kc, vc, None, out, lse, do, True,
+                                       1.0 / np.sqrt(d))
+    grads = qkv.grad.view(b, s, 3, h, d)
+    for i, w in enumerate(want):
+        torch.testing.assert_close(grads[:, :, i].float(), w.float(),
+                                   atol=ATOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_is_deterministic(d):
+    """No atomics: two backward calls on the same inputs give bitwise
+    equal dq, dk and dv (the training shape's width, causal, ragged S)."""
+    require_cuda()
+    rng = np.random.RandomState(20 + d)
+    q, k, v, do, dlse, seg = _flash_case(rng, (4, 1000, 12, d),
+                                         torch.bfloat16, False)
+    _, lse, delta = _flash_bwd_inputs(q, k, v, do, dlse, seg, True)
+    first = _flash_bwd(q, k, v, do, seg, lse, delta, True)
+    second = _flash_bwd(q, k, v, do, seg, lse, delta, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
 def _quantized(t, fmt):
     """Per-token-per-head absmax pack of a [.., KV, d] cache or pool:
     (narrow values, f32 scales [.., KV])."""
