@@ -63,7 +63,8 @@ Phases, each printing JSON lines (and failing loudly on any check):
    The quantized kernels: K5 and K7 (flash decode over int8 / fp8 K/V
    with per-token-per-head scales, dequantized in the kernel) at the
    same serving shapes against their plain versions, with SDPA over the
-   dequantized cache as the yardstick; K9 (the weight-only quantized
+   dequantized cache as the yardstick, each row with its GB/s and share
+   of the bound (the bf16 decode step's rows name ``qrows``); K9 (the weight-only quantized
    matmul) at Llama-2-7B's linear shapes for a decode step (M 8), the
    int8 [2, 2] and [4, 2, 2] verify bundles of 8 slots (M 56, 232) and
    prefill chunks of 128 and 256 tokens, each row naming its body
@@ -78,8 +79,11 @@ Phases, each printing JSON lines (and failing loudly on any check):
    tree (29); SDPA with the boolean mask over the gathered pool is the
    yardstick. ``split_sweep``: the tensor-core body at the 256-token
    chunk (bf16, int8) and the [4, 2, 2] and [2, 2] verify bundles under
-   forced split counts 1, 2, 4 and 8 (each output held to the plain
-   version), beside the count ``launch_plan`` picks.
+   forced split counts 1, 2, 4 and 8, and the int8 decode step
+   (``qrows``, groups 1, 2, 4 and 8, rows as the served traffic's decode
+   iteration holds them and as the kernel rows draw them) under 1 to 32
+   (each output held to the plain version),
+   beside the count ``launch_plan`` picks.
 5. ``serve``: Llama-2-7B at full width and depth, bf16, seeded random
    N(0, 0.02) weights made on the card, served by the paged engine
    (8 slots, max_len 2048, 16-token blocks, 256-token prefill chunks):
@@ -107,7 +111,8 @@ Phases, each printing JSON lines (and failing loudly on any check):
    K6, the chain's verify and its k + 1 draft forwards go through K6,
    the tree's verify and depth + 1 draft forwards through K8 and
    nothing else, every bundle of q_len >= 2 on the tensor-core body and
-   every q_len 1 draft step on the rows body; no fallback. Reports
+   every q_len 1 draft step on the rows body (``qrows`` over int8
+   pools); no fallback. Reports
    tokens/s beside the plain
    engine's, rounds, drafted and accepted tokens, the accept histogram,
    tokens equal to the plain engine's and preemptions. A ``profile`` of
@@ -116,15 +121,17 @@ Phases, each printing JSON lines (and failing loudly on any check):
    ``convert_for_serving`` to int8 weight-only linears and served with
    int8 KV blocks over the same 12 requests. Checks: every request
    completes; K7 launches exactly layers x (decode steps + prefill
-   chunks) and K9 exactly 225 x forwards (7 linears x 32 layers +
-   lm_head), by body exactly: 225 x prefill chunks on ``wgmma``, 225 x
-   decode steps on ``gemv``, with no fallback;
-   ``generate(kv_format="int8")`` on two prompts launches K5 once per
-   layer per decode step. Reports tokens/s, KV bytes per token and the
+   chunks), by body exactly: layers x chunks on ``mma``, layers x
+   decode steps on ``qrows``; K9 exactly 225 x forwards (7 linears x 32
+   layers + lm_head), by body exactly: 225 x prefill chunks on
+   ``wgmma``, 225 x decode steps on ``gemv``, with no fallback;
+   ``generate(kv_format="int8")`` on two prompts launches K5 (``qrows``)
+   once per layer per decode step. Reports tokens/s, KV bytes per token and the
    capacity against bf16, the model's bytes, peak memory, token
    agreement with the bf16 engine and the teacher-forced agreement
    (bf16 activations, reported), and a ``profile`` of its iterations
-   (int8 and fp8); then the int8 speculative lane (tree [2, 2], the
+   (int8 and fp8; ``flash_decode_qrows`` must be among the decode
+   iteration's top kernels); then the int8 speculative lane (tree [2, 2], the
    draft converted alike: K7, K8's quantized variant and K9, launch
    counts exact). Then fp8 weights and fp8 KV on four requests,
    with the same checks. ``quant_parity``: Llama-2-7B's width
@@ -238,20 +245,26 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def attention_bytes(lens, q_len, H, KV, d, itemsize, extra_bytes,
+                    kv_itemsize=None, scale_bytes=0):
+    """The bytes the attention of these rows must move: each valid K/V
+    byte (``kv_itemsize`` each, plus ``scale_bytes`` per token and kv
+    head for a quantized cache), q, out and the index inputs once."""
+    kv_isz = itemsize if kv_itemsize is None else kv_itemsize
+    return sum(lens) * KV * (d * kv_isz + scale_bytes) * 2 \
+        + 2 * len(lens) * q_len * H * d * itemsize + extra_bytes
+
+
 def attention_bound(lens, q_len, H, KV, d, itemsize, extra_bytes,
                     dtype_name, kv_itemsize=None, scale_bytes=0,
                     bundle_pairs=None):
-    """Least time for the attention of these rows: each valid K/V byte
-    (``kv_itemsize`` each, plus ``scale_bytes`` per token and kv head
-    for a quantized cache), q, out and the index inputs moved once, or
-    4*d flops per visible (query, key) pair at the dtype's peak,
-    whichever is larger. ``bundle_pairs``: the visible (query, key)
-    pairs inside the bundle of one row and head (a tree's ancestor
-    count; causal by default)."""
-    B = len(lens)
-    kv_isz = itemsize if kv_itemsize is None else kv_itemsize
-    nbytes = sum(lens) * KV * (d * kv_isz + scale_bytes) * 2 \
-        + 2 * B * q_len * H * d * itemsize + extra_bytes
+    """Least time for the attention of these rows: its bytes
+    (``attention_bytes``) at the memory rate, or 4*d flops per visible
+    (query, key) pair at the dtype's peak, whichever is larger.
+    ``bundle_pairs``: the visible (query, key) pairs inside the bundle
+    of one row and head (a tree's ancestor count; causal by default)."""
+    nbytes = attention_bytes(lens, q_len, H, KV, d, itemsize, extra_bytes,
+                             kv_itemsize, scale_bytes)
     inner = q_len * (q_len + 1) // 2 if bundle_pairs is None \
         else bundle_pairs
     pairs = sum(H * (q_len * (L - q_len) + inner) for L in lens)
@@ -764,24 +777,27 @@ def teacher_forced(model, prompt, emitted):
     return checked, skipped, bad
 
 
+# the served traffic: (prompt tokens, shares the 512-token prefix, new
+# tokens). The first eight prompts take 589 blocks of 16 tokens, and their
+# 128 new tokens 64 more: an engine with 60% of the 1025 worst-case blocks
+# admits all eight and must preempt while they decode
+TRAFFIC = ((1500, False, 128), (530, True, 128), (1480, False, 128),
+           (1400, False, 128), (1350, False, 128), (1300, False, 128),
+           (1100, False, 128), (700, False, 128), (620, True, 40),
+           (800, True, 72), (1024, True, 56), (48, False, 32))
+
+
 def traffic(rng, vocab):
-    """12 greedy requests: prompts of 48..1500 tokens, four sharing a
-    512-token prefix (one among the first eight admitted, three queued
-    behind them so they hit the prefix cache)."""
+    """12 greedy requests (``TRAFFIC``): prompts of 48..1500 tokens,
+    four sharing a 512-token prefix (one among the first eight admitted,
+    three queued behind them so they hit the prefix cache)."""
     shared = rng.randint(1, vocab, 512)
 
     def prompt(n, share=False):
         tail = rng.randint(1, vocab, n - 512 if share else n)
         return list(shared) + list(tail) if share else list(tail)
 
-    # the first eight prompts take 589 blocks of 16 tokens, and their 128
-    # new tokens 64 more: an engine with 60% of the 1025 worst-case
-    # blocks admits all eight and must preempt while they decode
-    spec = [(1500, False, 128), (530, True, 128), (1480, False, 128),
-            (1400, False, 128), (1350, False, 128), (1300, False, 128),
-            (1100, False, 128), (700, False, 128), (620, True, 40),
-            (800, True, 72), (1024, True, 56), (48, False, 32)]
-    return [(prompt(n, s), m) for n, s, m in spec]
+    return [(prompt(n, s), m) for n, s, m in TRAFFIC]
 
 
 def serve_engine(model, requests, draft=None, **overrides):
@@ -918,6 +934,11 @@ def profile_phase(model, requests, kind, kv_format="bf16"):
     decode = window(10)
     weights = next((m.fmt for m in model.modules() if hasattr(m, "fmt")),
                    "bfloat16")
+    if kv_format != "bf16":
+        top = [k for k, _ in decode["top_device_ms"]]
+        check(any("flash_decode_qrows" in k for k in top),
+              f"{kv_format} decode iteration: flash_decode_qrows is not "
+              f"among its top kernels {top}")
     emit({"phase": "profile", "model": "llama2_7b", "dtype": "bfloat16",
           "weights": weights, "kv_format": kv_format,
           "slots": 8, "prefill_iteration": prefill,
@@ -1006,20 +1027,21 @@ def expected_spec_bodies(L, Ld, overrides, st, quant):
     """The same launches split by kernel body (bf16): chunks, verify
     bundles and every draft-tree level wider than one node on the
     tensor cores; the chain's draft steps and the tree's root level
-    (q_len 1) on the rows body."""
+    (q_len 1) on the rows body (``qrows`` over int8/fp8 pools)."""
     sp = st["spec"]
     chunks, rounds, drafts = st["prefill_chunks"], sp["rounds"], \
         sp["draft_rounds"]
     sfx = "_quant" if quant else ""
     paged, tree = "paged_flash_decode_attention" + sfx, \
         "paged_flash_decode_attention_tree" + sfx
+    rows = "qrows" if quant else "rows"
     if "spec_tree" in overrides:
         depth = len(overrides["spec_tree"])
         return {f"{paged}/mma": (L + Ld) * chunks,
                 f"{tree}/mma": L * rounds + Ld * depth * drafts,
-                f"{tree}/rows": Ld * drafts}
+                f"{tree}/{rows}": Ld * drafts}
     return {f"{paged}/mma": (L + Ld) * chunks + L * rounds,
-            f"{paged}/rows": Ld * (overrides["spec_k"] + 1) * drafts}
+            f"{paged}/{rows}": Ld * (overrides["spec_k"] + 1) * drafts}
 
 
 def spec_lane(model, draft, requests, label, overrides, plain, kind,
@@ -1495,17 +1517,24 @@ def quant_attention_phase(rng):
                         bound, bound_by = attention_bound(
                             lens, q_len, H, KV, d, isz, extra, dname,
                             kv_itemsize=1, scale_bytes=4)
+                        nbytes = attention_bytes(lens, q_len, H, KV, d, isz,
+                                                 extra, kv_itemsize=1,
+                                                 scale_bytes=4)
+                        ms = cuda_ms(run, 50)
                         row = {"phase": "kernel", "name": kernel,
                                "kv_format": fmt, "dtype": dname, "B": Bq,
                                "q_len": q_len, "heads": H, "kv_heads": KV,
                                "group": group,
-                               "body": da.bundle_body(q_len, group, dtype),
+                               "body": da.bundle_body(q_len, group, dtype,
+                                                      fmt),
                                "head_dim": d,
                                "max_len": max_len,
                                "block_size": bs if paged else None,
                                "pos": [int(p) for p in pos],
                                "max_abs_err": err, "atol": ATOL[dname],
-                               "ok": ok, "ms": cuda_ms(run, 50),
+                               "ok": ok, "ms": ms,
+                               "gbs": nbytes / ms / 1e6,
+                               "bound_share": bound / ms,
                                "plain_ms": cuda_ms(plain, 5),
                                "library_ms": cuda_ms(lib, 20),
                                "library": "F.scaled_dot_product_attention "
@@ -1619,7 +1648,9 @@ def tree_kernel_phase(rng):
                "kv_format": pool if quant else "bf16", "pool": pool,
                "dtype": dname, "tree": list(tree) if tree else "causal",
                "B": B, "q_len": w, "heads": H, "kv_heads": KV,
-               "group": group, "body": da.bundle_body(w, group, dtype),
+               "group": group,
+               "body": da.bundle_body(w, group, dtype,
+                                      pool if quant else "bf16"),
                "head_dim": d, "max_len": max_len,
                "block_size": bs, "pos": [int(p) for p in pos],
                "max_abs_err": err, "atol": ATOL[dname], "ok": ok,
@@ -1643,19 +1674,30 @@ def tree_kernel_phase(rng):
     return rows
 
 
-# the split counts launch_plan chooses between, at the bundle shapes of
-# the serving path: (label, B, q_len, pool, tree)
-SPLIT_SHAPES = (("chunk", 1, 256, "bf16", None), ("chunk", 1, 256, "int8", None),
-                ("[4,2,2]", 8, 29, "bf16", (4, 2, 2)),
-                ("[4,2,2]", 8, 29, "int8", (4, 2, 2)),
-                ("[2,2]", 8, 7, "bf16", (2, 2)))
+# the split counts launch_plan chooses between, at the shapes of the
+# serving path: (label, B, q_len, pool, tree, group); the bundles run the
+# tensor-core body, the int8 decode step flash_decode_qrows (Llama-2-7B's
+# group 1, and the GQA groups its rows hold) over two kinds of rows:
+# "engine" as the served traffic's decode iteration holds them (the first
+# eight prompts of TRAFFIC, every slot taken: the main path), "ragged" as
+# the kernel rows draw them (two of eight empty)
+SPLIT_SHAPES = (("chunk", 1, 256, "bf16", None, 1),
+                ("chunk", 1, 256, "int8", None, 1),
+                ("[4,2,2]", 8, 29, "bf16", (4, 2, 2), 1),
+                ("[4,2,2]", 8, 29, "int8", (4, 2, 2), 1),
+                ("[2,2]", 8, 7, "bf16", (2, 2), 1)) + tuple(
+    (f"decode {rows}", 8, 1, "int8", None, group)
+    for group in (1, 2, 4, 8) for rows in ("engine", "ragged"))
 
 
 def split_sweep_phase(rng):
-    """The tensor-core body under forced split counts (1, 2, 4, 8) at
-    Llama-2-7B's bundle shapes, each output against the plain version:
-    the measurement behind ``launch_plan``'s split rule. Reports the
-    split count the plan picks beside the times."""
+    """The tensor-core body (bundles; 1 to 8 splits) and the decode
+    step's body (int8 pool, groups 1 to 8; 1 to 32 splits) under forced
+    split counts at Llama-2-7B's shapes, each output against the plain
+    version: the measurement behind ``launch_plan``'s split rules.
+    Reports the split count the plan picks beside the times. The decode
+    rows draw their tensors from a generator of their own, so the later
+    phases' draws from the card's default generator are as before."""
     import torch
 
     from paddle_tpu_torch.generation import spec_tree_plan
@@ -1665,21 +1707,29 @@ def split_sweep_phase(rng):
     H, d, max_len, bs = 32, 128, 2048, 16
     nb = max_len // bs
     planner = da.launch_plan
-    for label, B, w, pool, tree in SPLIT_SHAPES:
+    own = torch.Generator(device=dev).manual_seed(SEED + 11)
+    for label, B, w, pool, tree, group in SPLIT_SHAPES:
+        KV = H // group
         pos = rng.randint(0, max_len - w + 1, B)
         pos[0] = max_len - w
+        if label == "decode ragged":
+            pos[1], pos[2] = 0, 0
+        elif label == "decode engine":
+            pos[:] = [n for n, _, _ in TRAFFIC[:B]]
         pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
-        q = torch.randn(B, w, H, d, device=dev).to(torch.bfloat16)
+        g = own if label.startswith("decode") else None
+        q = torch.randn(B, w, H, d, device=dev, generator=g) \
+            .to(torch.bfloat16)
         N = B * nb + 1
         if pool == "int8":
-            kp, ksc = quantize_cache(torch.randn(N, bs, H, d, device=dev),
-                                     pool)
-            vp, vsc = quantize_cache(torch.randn(N, bs, H, d, device=dev),
-                                     pool)
+            kp, ksc = quantize_cache(torch.randn(
+                N, bs, KV, d, device=dev, generator=g), pool)
+            vp, vsc = quantize_cache(torch.randn(
+                N, bs, KV, d, device=dev, generator=g), pool)
             scales = dict(k_scale=ksc, v_scale=vsc)
         else:
-            kp = torch.randn(N, bs, H, d, device=dev).to(torch.bfloat16)
-            vp = torch.randn(N, bs, H, d, device=dev).to(torch.bfloat16)
+            kp = torch.randn(N, bs, KV, d, device=dev).to(torch.bfloat16)
+            vp = torch.randn(N, bs, KV, d, device=dev).to(torch.bfloat16)
             scales = {}
         bt = torch.tensor((rng.permutation(N - 1)[:B * nb] + 1)
                           .reshape(B, nb).astype("int32"), device=dev)
@@ -1690,12 +1740,12 @@ def split_sweep_phase(rng):
             q, kp, vp, bt, pos_t, ancestor_mask=mask, **scales)
         want = da.paged_flash_decode_attention_ref(
             q, kp, vp, bt, pos_t, ancestor_mask=mask, **scales)
-        chosen = planner(w, 1, torch.bfloat16, B, H, max_len,
+        chosen = planner(w, group, torch.bfloat16, B, KV, max_len,
                          torch.cuda.get_device_properties(0)
-                         .multi_processor_count)
+                         .multi_processor_count, pool)
         times, errs = {}, []
         try:
-            for n in (1, 2, 4, 8):
+            for n in (1, 2, 4, 8, 16, 32) if w == 1 else (1, 2, 4, 8):
                 per = -(-max_len // 64 // n)
                 forced = dict(chosen, n_split=-(-max_len // 64 // per),
                               split_keys=per * 64)
@@ -1705,7 +1755,8 @@ def split_sweep_phase(rng):
         finally:
             da.launch_plan = planner
         row = {"phase": "split_sweep", "bundle": label, "pool": pool, "B": B,
-               "q_len": w, "rows": chosen["rows"],
+               "q_len": w, "group": group, "pos": [int(p) for p in pos],
+               "body": chosen["body"], "rows": chosen["rows"],
                "plan_n_split": chosen["n_split"], "ms_by_n_split": times,
                "max_abs_err": max(errs), "atol": ATOL["bfloat16"]}
         emit(row)
@@ -1898,7 +1949,7 @@ def serve_quant_phase(cfg, requests, bf16_outputs, bf16_tps, kind):
         bodies = check_bodies(tag, bodies, {
             "paged_flash_decode_attention_quant/mma":
                 L * st["prefill_chunks"],
-            "paged_flash_decode_attention_quant/rows": L * st["steps"]})
+            "paged_flash_decode_attention_quant/qrows": L * st["steps"]})
         check(not fallbacks, f"{tag}: attention fallbacks {fallbacks}")
         check(qmm["quant_matmul"] == per_forward * forwards,
               f"{tag}: K9 launched {qmm['quant_matmul']} times, expected "
@@ -1985,7 +2036,7 @@ def quant_generate(model, cfg, requests, fmt):
     check(launches["flash_decode_attention"] == 0,
           f"{fmt} generate: the unquantized kernel ran: {launches}")
     check_bodies(f"{fmt} generate", da.BODY_LAUNCHES,
-                 {"flash_decode_attention_quant/rows": expect})
+                 {"flash_decode_attention_quant/qrows": expect})
     check(set(fallbacks) <= {"quant_q_len"},
           f"{fmt} generate: fallbacks {fallbacks}")
     return {"B": 2, "prompt_len": S, "new_tokens": N, "seconds": secs,

@@ -33,11 +33,15 @@
 //   - K/V rows are read once per (row tile, kv head) and serve the kv
 //     head's whole query group, so the GQA expansion never touches
 //     device memory;
-//   - three block bodies, chosen by the wrapper from q_len, the group and
-//     q's dtype (decode_attention.py bundle_body):
-//       flash_decode_rows (the bf16 decode step, q_len 1, and fp32 bundles
-//         of at most 8 rows): four warps stream keys with the head
-//         dimension split across lanes (coalesced row reads, no staging);
+//   - four block bodies, chosen by the wrapper from q_len, the group,
+//     q's dtype and the storage (decode_attention.py bundle_body):
+//       flash_decode_rows (the bf16 decode step over bf16 K/V, q_len 1,
+//         and fp32 bundles of at most 8 rows): four warps stream keys
+//         with the head dimension split across lanes (coalesced row
+//         reads, no staging);
+//       flash_decode_qrows (the bf16 decode step over int8/fp8 K/V):
+//         16-byte rows, the dequant without division or conversion
+//         instructions, the next keys' bytes in flight (see its note);
 //       flash_decode_mma (every bf16 bundle of q_len >= 2: prefill chunks,
 //         verify bundles, draft-tree levels): bf16 mma.sync m16n8k16 with
 //         fp32 accumulate, K/V tiles in shared memory through a cp.async
@@ -56,10 +60,10 @@
 // node) or mask[b, i, kpos - (len - q_len)] is set; keys past len stay
 // masked. Each block holds the mask rows of its query tokens as bits in
 // shared memory (at most 64 tokens x 256 bits in flash_decode_partial and
-// flash_decode_mma, 8 x 8 in flash_decode_rows) and every storage path
-// goes through the one visibility test, so the mask covers K6 and K7
-// alike. The masked bodies
-// are separate instantiations (MASKED) of the paged kernels: the causal
+// flash_decode_mma, 8 x 8 in flash_decode_rows and flash_decode_qrows)
+// and every storage path goes through the one visibility test, so the
+// mask covers K6 and K7 alike. The masked bodies are separate
+// instantiations (MASKED) of the paged kernels: the causal
 // launch carries no extra operand. A masked block scans its split up to
 // len (a general mask may reveal any bundle key); keys it adds past the
 // causal edge are masked, contribute p = 0 and leave m, l and the
@@ -72,7 +76,8 @@
 // factor. Each value is dequantized in the TPU prologue's order: widened
 // to f32, times its scale, DIVIDED by the bound (127 or 448), then
 // rounded to T (astype(q.dtype) at decode_attention.py:398/:400; a no-op
-// for fp32). The SIMT bodies do that where they load a value;
+// for fp32). The fp32 SIMT bodies do that where they load a value;
+// flash_decode_qrows in registers, once per value for all its rows;
 // flash_decode_mma once per tile in shared memory, before the MMA. Only
 // the narrow bytes and the scales cross device memory, about half of a
 // bf16 cache's bytes at head_dim 128.
@@ -86,6 +91,7 @@
 
 #include "div_bound.cuh"  // exact x / 127, x / 448 without a division
 #include "mma_bf16.cuh"   // bf16 typedef, mma16816, fragment loads
+#include "widen.cuh"      // narrow bytes to bf16 pairs, bf16x2 rounding
 
 namespace {
 
@@ -179,18 +185,6 @@ __device__ __forceinline__ float kv_bound<__nv_fp8_e4m3>() {
   return 448.f;
 }
 
-// x rounded to T and widened back (round to nearest even for bf16)
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 // E consecutive values at p (aligned to their size) as floats, one load.
 template <typename T, int E>
 __device__ __forceinline__ void load_vals(const T* p, float* out) {
@@ -202,19 +196,19 @@ __device__ __forceinline__ void load_vals(const T* p, float* out) {
 }
 
 // E consecutive K or V values of one cached row as floats. S == T: the
-// values as stored. S narrow (int8 / fp8): the dequant prologue of
-// _decode_kernel_quant, (f32(q) * s / bound) rounded to T, with s the
-// row's absmax scale.
+// values as stored. S narrow (int8 / fp8, fp32 queries only; bf16 queries
+// take flash_decode_qrows or flash_decode_mma): the dequant prologue of
+// _decode_kernel_quant, f32(q) * s / bound, with s the row's absmax scale.
 template <typename S, typename T, int E>
 __device__ __forceinline__ void load_kv(const S* p, float s, float* out) {
   if constexpr (std::is_same<S, T>::value) {
     load_vals<T, E>(p, out);
   } else {
+    static_assert(std::is_same<T, float>::value, "narrow K/V: fp32 q");
     float raw[E];
     load_vals<S, E>(p, raw);
 #pragma unroll
-    for (int e = 0; e < E; ++e)
-      out[e] = round_to<T>(raw[e] * s / kv_bound<S>());
+    for (int e = 0; e < E; ++e) out[e] = raw[e] * s / kv_bound<S>();
   }
 }
 
@@ -269,6 +263,51 @@ __device__ __forceinline__ void load_mask_bits(const uint8_t* mask, int b,
     uint32_t x = 0;
     for (int j = 0; j < n; ++j) x |= (src[j] != 0 ? 1u : 0u) << j;
     bits[t * words_stride + w] = x;
+  }
+}
+
+// Nothing visible in a split: the skip partial of its nr rows at part (acc
+// 0, m -1e30, l 0) contributes exact zeros to the merge.
+template <int D>
+__device__ __forceinline__ void write_skip_partial(float* o_part,
+                                                   float* m_part,
+                                                   float* l_part,
+                                                   long long part, int nr,
+                                                   int tid) {
+  for (int idx = tid; idx < nr * D; idx += kThreads)
+    o_part[part * D + idx] = 0.f;
+  for (int r = tid; r < nr; r += kThreads) {
+    m_part[part + r] = kNegInf;
+    l_part[part + r] = 0.f;
+  }
+}
+
+// The kWarps warps' (m, l, acc) of nr rows, staged in shared memory (row r
+// of warp w at sM[w * RS + r], sL[w * RS + r], sAcc[(w * RS + r) * D + c]),
+// merged into the split's partial at part. The caller syncs first.
+template <int D, int RS>
+__device__ __forceinline__ void merge_warps(const float* sM, const float* sL,
+                                            const float* sAcc, float* o_part,
+                                            float* m_part, float* l_part,
+                                            long long part, int nr, int tid) {
+  for (int idx = tid; idx < nr * D; idx += kThreads) {
+    const int r = idx / D;
+    const int c = idx % D;
+    float mt = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mt = fmaxf(mt, sM[w * RS + r]);
+    float lt = 0.f, at = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(sM[w * RS + r] - mt);
+      lt += sL[w * RS + r] * f;
+      at += sAcc[(w * RS + r) * D + c] * f;
+    }
+    o_part[(part + r) * D + c] = at;
+    if (c == 0) {
+      m_part[part + r] = mt;
+      l_part[part + r] = lt;
+    }
   }
 }
 
@@ -346,14 +385,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long part = ((long long)bk * n_split + split) * gq + row0;
 
   if (k_begin >= k_end) {
-    // nothing visible in this split: the skip partial (acc 0, m -1e30,
-    // l 0) contributes exact zeros to the merge
-    for (int idx = tid; idx < nr * D; idx += kThreads)
-      o_part[part * D + idx] = 0.f;
-    for (int r = tid; r < nr; r += kThreads) {
-      m_part[part + r] = kNegInf;
-      l_part[part + r] = 0.f;
-    }
+    write_skip_partial<D>(o_part, m_part, l_part, part, nr, tid);
     return;
   }
 
@@ -519,7 +551,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Decode variant for bundles of at most SR query rows per kv head (the
-// decode step: q_len 1 times the group). One block of four warps per
+// decode step: q_len 1 times the group; bf16 queries over bf16 K/V, or
+// fp32 queries over any storage). One block of four warps per
 // (split, b * KV + kvh). Each warp streams its own share of the split's
 // keys, U at a time; its lanes split the head dimension (D / 32 values
 // each), so a K or V row is one coalesced read per warp and is never
@@ -565,12 +598,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long part = ((long long)bk * n_split + split) * gq;
 
   if (k_begin >= k_end) {
-    for (int idx = tid; idx < gq * D; idx += kThreads)
-      o_part[part * D + idx] = 0.f;
-    for (int r = tid; r < gq; r += kThreads) {
-      m_part[part + r] = kNegInf;
-      l_part[part + r] = 0.f;
-    }
+    write_skip_partial<D>(o_part, m_part, l_part, part, gq, tid);
     return;
   }
 
@@ -667,25 +695,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < gq * D; idx += kThreads) {
-    const int r = idx / D;
-    const int c = idx % D;
-    float mt = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mt = fmaxf(mt, sM[w][r]);
-    float lt = 0.f, at = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sM[w][r] - mt);
-      lt += sL[w][r] * f;
-      at += sAcc[w][r][c] * f;
-    }
-    o_part[(part + r) * D + c] = at;
-    if (c == 0) {
-      m_part[part + r] = mt;
-      l_part[part + r] = lt;
-    }
-  }
+  merge_warps<D, SR>(&sM[0][0], &sL[0][0], &sAcc[0][0][0], o_part, m_part,
+                     l_part, part, gq, tid);
 }
 
 // Log-sum-exp merge of the splits' partials for one (row, b * KV + kvh),
@@ -873,13 +884,7 @@ __global__ void __launch_bounds__(kThreads)
   };
 
   if (k_begin >= k_end) {
-    // nothing visible in this split: the skip partial (acc 0, m -1e30,
-    // l 0) contributes exact zeros to the merge
-    for (int idx = tid; idx < nr * D; idx += NT) o_part[part * D + idx] = 0.f;
-    for (int r = tid; r < nr; r += NT) {
-      m_part[part + r] = kNegInf;
-      l_part[part + r] = 0.f;
-    }
+    write_skip_partial<D>(o_part, m_part, l_part, part, nr, tid);
     return;
   }
   if constexpr (MASKED)  // read after the tile loop's first barrier
@@ -1118,26 +1123,339 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    for (int idx = tid; idx < nr * D; idx += NT) {
-      const int r = idx / D;
-      const int c = idx % D;
-      float mt = kNegInf;
+    merge_warps<D, 16>(sM, sL, sAcc, o_part, m_part, l_part, part, nr, tid);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 decode step over int8/fp8 K/V
+// ---------------------------------------------------------------------------
+//
+// flash_decode_qrows: bf16 queries over int8 or fp8 e4m3 K/V with their
+// per-(token, kv head) f32 scales, q_len 1 and at most SR <= 8 rows (the
+// GQA group; a MASKED bundle of at most SR tokens alike): the decode step
+// of K5 and K7. It replaces the body _decode_kernel_quant
+// (decode_attention.py:371) of _flash_decode (:491) and
+// _paged_flash_decode (:685) at that shape: the prologue widens each K/V
+// value to f32, multiplies it by its row's scale, divides by the bound and
+// rounds to q's dtype; _cell_partial then scores and accumulates in f32.
+//
+// What bounds it: bytes. Each narrow K/V byte (and 8 bytes of scales a
+// key and kv head) is read once for 2 flops a row, far below the card's
+// operations line; but the exact dequant takes instructions of its own
+// (about nine a value here), which puts the issue rate close to the byte
+// bound too, and the SIMT rows body it replaces spent 15x its bound there
+// (IEEE division and conversion instructions, 4-byte loads, nothing in
+// flight while it computed). What the design does about that:
+//   - no conversion or division unit in the dequant: narrow4_f32 widens
+//     the bytes to f32 (int8: a byte permute under 2^23's exponent and one
+//     subtraction; e4m3: widen2's bf16 pairs and a shift), __fmul_rn
+//     applies the scale, div_bound divides exactly in a multiply and an
+//     fma, cvt.rn.bf16x2 rounds two values at once and a shift widens
+//     them back: the values equal unpack_absmax's to the bit. A warp votes
+//     once a step over its keys' scales (exact_scale); a scale outside
+//     div_bound's range takes the IEEE division value by value;
+//   - 16-byte rows: a lane loads C narrow values of a key (C 16; 8 at SR 4
+//     and 4 at SR 8, so q and the accumulators stay in registers), a row
+//     is D / C lanes and a warp load covers 32 C / D keys; a key's dot
+//     reduces over its own lanes only (3 shuffles at D 128, C 16);
+//   - each lane group keeps its own (m, l, acc) over its keys, U a step
+//     (4 from 4 rows, where a key's dots and accumulation outweigh the
+//     step's softmax); the groups of a warp merge by shuffles, the four
+//     warps through shared memory, once at the end;
+//   - loads in flight: the next step's K/V bytes and scales are loaded
+//     into registers before this step's are dequantized, and (paged) the
+//     physical blocks of the step after that, so neither the bytes nor the
+//     block table wait on the arithmetic; the bytes bypass L1, which keeps
+//     the table and the scales. Keys past the split's end load its last
+//     key (masked), so no load sits under a branch. A key's page is
+//     kpos / bs as one multiply-high by a reciprocal computed once.
+template <int D, int SR>
+struct QRows {
+  static constexpr int C = SR <= 2 ? 16 : 32 / SR;  // values a lane loads
+  static constexpr int W = C / 4;                   // as 32-bit words
+  static constexpr int LPR = D / C;                 // lanes per key row
+  static constexpr int G = 32 / LPR;                // keys per warp load
+  static constexpr int U = SR >= 4 ? 4 : 2;         // keys per group a step
+  static constexpr int KW = G * U;                  // keys per warp a step
+  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "row lanes");
+};
+
+// N 32-bit words at p (aligned to their size), read once: through the
+// non-coherent path without a place in L1, which keeps the block table and
+// the scales there
+template <int N>
+__device__ __forceinline__ void ld_stream(const void* p, uint32_t* w) {
+  if constexpr (N == 4) {
+    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+        : "l"(p));
+  } else if constexpr (N == 2) {
+    asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
+        : "=r"(w[0]), "=r"(w[1])
+        : "l"(p));
+  } else {
+    static_assert(N == 1, "1, 2 or 4 words");
+    asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];\n" : "=r"(w[0]) : "l"(p));
+  }
+}
+
+// The 4 W narrow values in w dequantized with scale s in the prologue's
+// order, f32(q) * s / bound rounded to bf16, as f32. EXACT: s passed
+// exact_scale, so div_bound's division is the IEEE one; else the IEEE
+// division itself.
+template <typename S, int W, bool EXACT>
+__device__ __forceinline__ void dequant_bf16(const uint32_t* w, float s,
+                                             float* out) {
 #pragma unroll
-      for (int w = 0; w < NW; ++w) mt = fmaxf(mt, sM[w * 16 + r]);
-      float lt = 0.f, at = 0.f;
+  for (int i = 0; i < W; ++i) {
+    float f[4];
+    narrow4_f32<S>(w[i], f);
 #pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        const float f = expf(sM[w * 16 + r] - mt);
-        lt += sL[w * 16 + r] * f;
-        at += sAcc[(w * 16 + r) * D + c] * f;
+    for (int e = 0; e < 4; ++e) {
+      const float x = __fmul_rn(f[e], s);
+      f[e] = EXACT ? div_bound<S>(x) : __fdiv_rn(x, kv_bound<S>());
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t r = round2_bf16(f[2 * h], f[2 * h + 1]);
+      out[4 * i + 2 * h] = bf16_lo(r);
+      out[4 * i + 2 * h + 1] = bf16_hi(r);
+    }
+  }
+}
+
+// One (split, b * KV + kvh) block of four warps; the partial layout of
+// flash_decode_rows.
+template <typename S, int D, int SR, bool PAGED, bool MASKED>
+__global__ void __launch_bounds__(kThreads)
+    flash_decode_qrows(const bf16* __restrict__ q, const S* __restrict__ k,
+                       const S* __restrict__ v, const float* __restrict__ ks,
+                       const float* __restrict__ vs,
+                       const int* __restrict__ pos,
+                       const int* __restrict__ bt,
+                       const uint8_t* __restrict__ mask,
+                       float* __restrict__ o_part,
+                       float* __restrict__ m_part, float* __restrict__ l_part,
+                       int q_len, int H, int KV, int max_len, int bs, int nb,
+                       int split_keys, float scale) {
+  using P = QRows<D, SR>;
+  constexpr int C = P::C, W = P::W, LPR = P::LPR, G = P::G, U = P::U;
+  constexpr int STEP = kWarps * P::KW;  // keys of the block a step
+  __shared__ float sM[kWarps][SR];
+  __shared__ float sL[kWarps][SR];
+  __shared__ float sAcc[kWarps][SR][D];
+  // MASKED: one word of mask bits per query token (q_len <= SR <= 8)
+  __shared__ uint32_t sMask[MASKED ? SR : 1];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int grp = lane / LPR;         // this lane's key within a warp load
+  const int col = (lane % LPR) * C;   // and its first column
+  const int split = blockIdx.x;
+  const int n_split = gridDim.x;
+  const int bk = blockIdx.z;
+  const int b = bk / KV;
+  const int kvh = bk % KV;
+  const int group = H / KV;
+  const int gq = q_len * group;  // <= SR
+  const int len = min(pos[b] + q_len, max_len);
+  const int qbase = len - q_len;
+  const int q_hi = qbase + (gq - 1) / group;
+  const int k_begin = split * split_keys;
+  const int k_end = MASKED ? min(k_begin + split_keys, len)
+                           : min(min(k_begin + split_keys, len), q_hi + 1);
+  const long long part = ((long long)bk * n_split + split) * gq;
+
+  if (k_begin >= k_end) {
+    write_skip_partial<D>(o_part, m_part, l_part, part, gq, tid);
+    return;
+  }
+
+  if constexpr (MASKED) {
+    load_mask_bits(mask, b, q_len, 0, q_len, 1, sMask, tid);
+    __syncthreads();
+  }
+
+  float qv[SR][C], acc[SR][C], m[SR], l[SR];
+#pragma unroll
+  for (int r = 0; r < SR; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < C; ++e) qv[r][e] = acc[r][e] = 0.f;
+    if (r < gq) {
+      const bf16* src = q + (((long long)b * q_len + r / group) * H +
+                             kvh * group + r % group) * D + col;
+      constexpr int QE = C < 8 ? C : 8;  // bf16 values per 16-byte load
+#pragma unroll
+      for (int e = 0; e < C; e += QE) load_vals<bf16, QE>(src + e, qv[r] + e);
+    }
+  }
+
+  // key u of this lane in the warp's step at kc: kc + u * G + grp. Paged:
+  // its page by a multiply-high (exact while kpos * bs < 2^32; the launch
+  // checks max_len * bs), the physical block clamped as kv_row clamps it.
+  const unsigned inv_bs = PAGED && bs > 1 ? 0xffffffffu / bs + 1u : 0u;
+  auto page_of = [&](int kpos) {
+    return bs > 1 ? (int)__umulhi((unsigned)kpos, inv_bs) : kpos;
+  };
+  // A key past the split's end reads the split's last key instead (it is
+  // masked below and adds nothing), so every load is unconditional.
+  auto phys_of = [&](int kpos) {
+    const int kq = min(kpos, k_end - 1);
+    return __ldg(bt + (long long)b * nb + min(page_of(kq), nb - 1));
+  };
+  // the bytes and scales of key kpos: its token row in the cache or pool,
+  // then this lane's columns of kv head kvh
+  const S* k_lane = k + kvh * D + col;
+  const S* v_lane = v + kvh * D + col;
+  auto fetch = [&](int kpos, int phys, uint32_t* kw, uint32_t* vw, float& sk,
+                   float& sv) {
+    const int kq = min(kpos, k_end - 1);
+    const int tok = PAGED ? phys * bs + kq - page_of(kq) * bs
+                          : b * max_len + kq;
+    const long long at = (long long)tok * (KV * D);
+    ld_stream<W>(k_lane + at, kw);
+    ld_stream<W>(v_lane + at, vw);
+    sk = __ldg(ks + (long long)tok * KV + kvh);
+    sv = __ldg(vs + (long long)tok * KV + kvh);
+  };
+
+  int kc = k_begin + warp * P::KW;  // this warp's first key of the step
+  uint32_t kr[U][W], vr[U][W];      // the step's bytes, then the next's
+  float skr[U], svr[U];
+  int ph[U];                        // paged: the next step's blocks
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int kpos = kc + u * G + grp;
+    fetch(kpos, PAGED ? phys_of(kpos) : 0, kr[u], vr[u], skr[u], svr[u]);
+    ph[u] = PAGED ? phys_of(kpos + STEP) : 0;
+  }
+
+  for (; kc < k_end; kc += STEP) {
+    uint32_t kn[U][W], vn[U][W];
+    float skn[U], svn[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int kpos = kc + STEP + u * G + grp;
+      fetch(kpos, ph[u], kn[u], vn[u], skn[u], svn[u]);
+      if constexpr (PAGED) ph[u] = phys_of(kpos + STEP);
+    }
+
+    // this step: U keys per lane group, their visibility per row
+    auto step = [&](auto exact) {
+      constexpr bool EXACT = decltype(exact)::value;
+      float sc[SR][U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float kf[C];
+        dequant_bf16<S, W, EXACT>(kr[u], skr[u], kf);
+#pragma unroll
+        for (int r = 0; r < SR; ++r) {
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < C; ++e) dot = fmaf(qv[r][e], kf[e], dot);
+          sc[r][u] = dot;
+        }
       }
-      o_part[(part + r) * D + c] = at;
-      if (c == 0) {
-        m_part[part + r] = mt;
-        l_part[part + r] = lt;
+#pragma unroll
+      for (int r = 0; r < SR; ++r)
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int o = LPR / 2; o > 0; o >>= 1)
+            sc[r][u] += __shfl_xor_sync(0xffffffffu, sc[r][u], o);
+#pragma unroll
+      for (int r = 0; r < SR; ++r) {
+        if (r < gq) {
+          const int ti = r / group;  // the row's query token
+          const uint32_t* mrow = sMask + (MASKED ? ti : 0);
+          bool vis[U];
+          float mx = m[r];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int kpos = kc + u * G + grp;
+            vis[u] = kpos < k_end && visible<MASKED>(kpos, qbase, ti, mrow);
+            sc[r][u] = vis[u] ? sc[r][u] * scale : kNegInf;
+            mx = fmaxf(mx, sc[r][u]);
+          }
+          const float alpha = expf(m[r] - mx);
+          float ps = 0.f;
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            sc[r][u] = vis[u] ? expf(sc[r][u] - mx) : 0.f;
+            ps += sc[r][u];
+          }
+          l[r] = l[r] * alpha + ps;
+          m[r] = mx;
+#pragma unroll
+          for (int e = 0; e < C; ++e) acc[r][e] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float vf[C];
+        dequant_bf16<S, W, EXACT>(vr[u], svr[u], vf);
+#pragma unroll
+        for (int r = 0; r < SR; ++r)
+          if (r < gq)
+#pragma unroll
+            for (int e = 0; e < C; ++e)
+              acc[r][e] = fmaf(sc[r][u], vf[e], acc[r][e]);
+      }
+    };
+    bool exact = true;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      exact = exact && exact_scale(skr[u]) && exact_scale(svr[u]);
+    if (__all_sync(0xffffffffu, exact))
+      step(std::true_type());
+    else
+      step(std::false_type());
+
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) kr[u][i] = kn[u][i], vr[u][i] = vn[u][i];
+      skr[u] = skn[u];
+      svr[u] = svn[u];
+    }
+  }
+
+  // the lane groups of the warp merge by shuffles (group 0 keeps the sum)
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < SR; ++r) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[r], o);
+      const float mt = fmaxf(m[r], mo);
+      const float fa = expf(m[r] - mt), fb = expf(mo - mt);
+      l[r] = l[r] * fa + lo * fb;
+      m[r] = mt;
+#pragma unroll
+      for (int e = 0; e < C; ++e)
+        acc[r][e] = acc[r][e] * fa +
+                    __shfl_xor_sync(0xffffffffu, acc[r][e], o) * fb;
+    }
+  if (grp == 0) {
+#pragma unroll
+    for (int r = 0; r < SR; ++r) {
+      if (r < gq) {
+        if (lane == 0) {
+          sM[warp][r] = m[r];
+          sL[warp][r] = l[r];
+        }
+#pragma unroll
+        for (int e = 0; e < C; ++e) sAcc[warp][r][col + e] = acc[r][e];
       }
     }
   }
+  __syncthreads();
+  merge_warps<D, SR>(&sM[0][0], &sL[0][0], &sAcc[0][0][0], o_part, m_part,
+                     l_part, part, gq, tid);
 }
 
 struct Args {
@@ -1202,6 +1520,27 @@ cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename S, int D, int SR, bool PAGED, bool MASKED>
+cudaError_t launch_qrows(const Args& a, cudaStream_t stream) {
+  const int gq = a.q_len * (a.H / a.KV);
+  if (gq > SR) return cudaErrorInvalidValue;
+  // the page of a key by a multiply-high: exact while kpos * bs < 2^32
+  if (PAGED && (long long)a.max_len * a.bs >= (1ll << 31))
+    return cudaErrorInvalidValue;
+  const dim3 grid(a.n_split, 1, a.B * a.KV);
+  flash_decode_qrows<S, D, SR, PAGED, MASKED><<<grid, kThreads, 0, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const S*>(a.k),
+      static_cast<const S*>(a.v), a.ks, a.vs, a.pos, a.bt, a.mask, a.o_part,
+      a.m_part, a.l_part, a.q_len, a.H, a.KV, a.max_len, a.bs, a.nb,
+      a.split_keys, a.scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_decode_merge<bf16, D><<<dim3(gq, a.B * a.KV), kThreads, 0, stream>>>(
+      a.o_part, a.m_part, a.l_part, static_cast<bf16*>(a.out), a.q_len, a.H,
+      a.KV, a.n_split);
+  return cudaGetLastError();
+}
+
 template <typename S, int D, bool PAGED, bool MASKED, bool SMALL>
 cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = MmaSmem<S, D>::bytes;
@@ -1231,19 +1570,30 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
 }
 
 // the bodies of the C entry (decode_attention.py _BODY_CODES)
-enum Body { kBodyRows = 0, kBodyTiled = 1, kBodyMma = 2 };
+enum Body { kBodyRows = 0, kBodyTiled = 1, kBodyMma = 2, kBodyQRows = 3 };
 
-// rows: the row tile. kBodyRows 1, 2, 4, 8 (one tile, SR rows);
-// kBodyTiled 64 (fp32 only); kBodyMma 16 (one small tile) or MMA_ROWS
-// (bf16 only)
+// rows: the row tile. kBodyRows 1, 2, 4, 8 (one tile, SR rows; fp32
+// queries, or bf16 over bf16 K/V); kBodyQRows 1, 2, 4, 8 (bf16 over
+// int8/fp8); kBodyTiled 64 (fp32 only); kBodyMma 16 (one small tile) or
+// MMA_ROWS (bf16 only)
 template <typename T, typename S, int D, bool PAGED, bool MASKED>
 cudaError_t by_rows(const Args& a, int body, int rows, cudaStream_t stream) {
-  if (body == kBodyRows) {
-    if (rows == 1) return launch_rows<T, S, D, 1, PAGED, MASKED>(a, stream);
-    if (rows == 2) return launch_rows<T, S, D, 2, PAGED, MASKED>(a, stream);
-    if (rows == 4) return launch_rows<T, S, D, 4, PAGED, MASKED>(a, stream);
-    if (rows == 8) return launch_rows<T, S, D, 8, PAGED, MASKED>(a, stream);
-    return cudaErrorInvalidValue;
+  constexpr bool kNarrowBf16 =
+      std::is_same<T, bf16>::value && !std::is_same<S, bf16>::value;
+  if constexpr (kNarrowBf16) {
+    if (body == kBodyQRows) {
+      if (rows == 1) return launch_qrows<S, D, 1, PAGED, MASKED>(a, stream);
+      if (rows == 2) return launch_qrows<S, D, 2, PAGED, MASKED>(a, stream);
+      if (rows == 4) return launch_qrows<S, D, 4, PAGED, MASKED>(a, stream);
+      if (rows == 8) return launch_qrows<S, D, 8, PAGED, MASKED>(a, stream);
+    }
+  } else {
+    if (body == kBodyRows) {
+      if (rows == 1) return launch_rows<T, S, D, 1, PAGED, MASKED>(a, stream);
+      if (rows == 2) return launch_rows<T, S, D, 2, PAGED, MASKED>(a, stream);
+      if (rows == 4) return launch_rows<T, S, D, 4, PAGED, MASKED>(a, stream);
+      if (rows == 8) return launch_rows<T, S, D, 8, PAGED, MASKED>(a, stream);
+    }
   }
   if constexpr (std::is_same<T, float>::value) {
     if (body == kBodyTiled && rows == ROWS)
@@ -1307,8 +1657,9 @@ cudaError_t by_layout(const Args& a, int kv_code, int D, int body, int rows,
 // pool shape without D).
 // mask (paged only; nullptr = causal bundle) is the [B, q_len, q_len]
 // ancestor mask as bytes, nonzero = visible, q_len <= 256.
-// body (0 rows, 1 tiled, 2 mma) and rows (its row tile) name the block
-// body; a body that is not built for q's dtype is refused.
+// body (0 rows, 1 tiled, 2 mma, 3 qrows) and rows (its row tile) name
+// the block body; a body that is not built for q's dtype and the storage
+// is refused.
 // o_part [B*KV, n_split, gq, D], m_part/l_part [B*KV, n_split, gq] are
 // fp32 scratch owned by the caller. Returns the cudaError_t of the
 // launches (0 = both were accepted).

@@ -53,6 +53,7 @@
 
 #include "mma_bf16.cuh"  // bf16, mma16816, pack2f
 #include "sm90.cuh"      // TMA, mbarriers, wgmma, tensor maps
+#include "widen.cuh"     // widen2: narrow bytes to bf16 pairs
 
 namespace {
 
@@ -204,52 +205,6 @@ struct WgArgs {
   int token_tiles, splits, per;  // per: 64-k steps of a split
   int stages, items, tma_store;
 };
-
-// a - b and a * b on bf16 pairs (exact where used)
-__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-// Two narrow weights (bytes 0-1 of w with sel = widen_sel<S>(0), bytes
-// 2-3 with widen_sel<S>(1)) as a bf16 pair, bit-equal to torch's
-// .to(torch.bfloat16), with no conversion instructions:
-//   int8: the byte's low 7 bits under bf16 128's exponent give 128 + q &
-//     127; minus 128 (256 where q < 0) leaves q. |q| <= 128: exact.
-//   e4m3: sign, exponent and mantissa shifted into bf16's fields give the
-//     value times 2^-120 (exponent bias 127 against 7); one multiply by
-//     2^120 is exact, subnormals included.
-template <typename S>
-__device__ __forceinline__ uint32_t widen_sel(int half);
-template <>
-__device__ __forceinline__ uint32_t widen_sel<int8_t>(int half) {
-  return 0x4140u + 0x0202u * half;  // bytes into halfwords' low bytes
-}
-template <>
-__device__ __forceinline__ uint32_t widen_sel<__nv_fp8_e4m3>(int half) {
-  return 0x1404u + 0x2020u * half;  // bytes into halfwords' high bytes
-}
-template <typename S>
-__device__ __forceinline__ uint32_t widen2(uint32_t w, uint32_t sel);
-template <>
-__device__ __forceinline__ uint32_t widen2<int8_t>(uint32_t w, uint32_t sel) {
-  const uint32_t r = __byte_perm(w, 0u, sel);
-  return bf16x2_sub((r & 0x007f007fu) | 0x43004300u,
-                    (r & 0x00800080u) | 0x43004300u);
-}
-template <>
-__device__ __forceinline__ uint32_t widen2<__nv_fp8_e4m3>(uint32_t w,
-                                                          uint32_t sel) {
-  const uint32_t r = __byte_perm(w, 0u, sel);
-  return bf16x2_mul(((r >> 4) & 0x07f007f0u) | (r & 0x80008000u),
-                    0x7b807b80u);  // 2^120
-}
 
 __device__ __forceinline__ void wg_consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(WG_CONSUMERS) : "memory");

@@ -19,9 +19,10 @@ Both take QUANTIZED caches too: int8 / float8_e4m3 K/V with their
 per-token-per-head f32 absmax scales (``k_scale``/``v_scale``, shaped
 like the cache without the head dimension). The kernel dequantizes
 ``q * s / bound`` rounded to q's dtype (the prologue of the TPU kernel's
-``_decode_kernel_quant``): the SIMT bodies each value where they load
-it, the tensor-core body each K/V tile once in shared memory. Only the
-narrow bytes cross device memory.
+``_decode_kernel_quant``): the bf16 decode step's body each value in
+registers once for all its rows, the fp32 SIMT bodies each value where
+they load it, the tensor-core body each K/V tile once in shared memory.
+Only the narrow bytes cross device memory.
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; there is no fallback. Each
@@ -30,14 +31,16 @@ their own ``*_quant`` keys and tree bundles under ``*_tree`` /
 ``*_tree_quant``; ``BODY_LAUNCHES`` splits the same launches by the
 kernel body that ran (``"<name>/<body>"``).
 
-Which body runs is a pure function of the bundle (``bundle_body``):
+Which body runs is a pure function of the bundle and the storage
+(``bundle_body``):
 
-| q dtype | bundle | body |
-|---|---|---|
-| bf16 | q_len 1 (the decode step), at most 8 rows | ``rows``: four warps stream the keys |
-| bf16 | q_len >= 2 (chunks, verify bundles, draft levels); q_len 1 over more than 8 rows | ``mma``: bf16 tensor cores |
-| fp32 | at most 8 rows | ``rows`` |
-| fp32 | more rows | ``tiled``: fp32 FMA (the card-against-CPU parity path) |
+| q dtype | K/V | bundle | body |
+|---|---|---|---|
+| bf16 | bf16 | q_len 1 (the decode step), at most 8 rows | ``rows``: four warps stream the keys |
+| bf16 | int8, fp8 | q_len 1, at most 8 rows | ``qrows``: 16-byte rows, the dequant in integer and fma ops, the next keys in flight |
+| bf16 | any | q_len >= 2 (chunks, verify bundles, draft levels); q_len 1 over more than 8 rows | ``mma``: bf16 tensor cores |
+| fp32 | any | at most 8 rows | ``rows`` |
+| fp32 | any | more rows | ``tiled``: fp32 FMA (the card-against-CPU parity path) |
 
 The mask never enters the choice, so a causal ancestor mask and the
 maskless launch take the same body. ``launch_plan`` adds the row tile
@@ -85,11 +88,21 @@ MAX_SPEC_K = MAX_PAGED_Q_LEN - 1
 NEG_INF = -1e30
 
 # the block bodies of csrc/decode_attention.cu and their codes there
-_BODY_CODES = {"rows": 0, "tiled": 1, "mma": 2}
+_BODY_CODES = {"rows": 0, "tiled": 1, "mma": 2, "qrows": 3}
 
 # keys per unit of the split: the SIMT bodies' shared-memory chunk (csrc
-# KB) and the tensor-core body's K/V tile (csrc MMA_KEYS)
-_SPLIT_UNIT = {"rows": 32, "tiled": 32, "mma": 64}
+# KB), the tensor-core body's K/V tile (csrc MMA_KEYS) and, for qrows,
+# four 16-key pages (a whole number of its block's steps of 16-64 keys)
+_SPLIT_UNIT = {"rows": 32, "tiled": 32, "mma": 64, "qrows": 64}
+
+# qrows: no split longer than this many keys, however many blocks the
+# grid holds. On an H100 (chip_smoke.py's split_sweep rows "decode
+# engine", which hold the served traffic's decode iteration, and the int8
+# engine's profile line; PERF.md) Llama-2-7B's decode step (B 8, group 1)
+# is fastest in 8 splits of 256 keys, in the sweep and in the engine.
+# With _FILL's 2 blocks a SM, groups 2 and 4 take 8 splits as well and
+# group 8 takes 16.
+_QROWS_SPLIT_KEYS = 256
 
 # rows per block of a wide bundle (more than 16 rows) in the mma body:
 # four warps of 16 (csrc MMA_ROWS)
@@ -106,7 +119,7 @@ MMA_ROWS = 64
 # a prefill iteration's attention took 16.2 ms with four splits and 21.1
 # with two. Eight blocks a SM and partials up to half the K/V give both
 # four.
-_FILL = {"rows": 4, "tiled": 2, "mma": 8}
+_FILL = {"rows": 4, "tiled": 2, "mma": 8, "qrows": 2}
 _MMA_PART_SHARE = 2
 
 LAUNCHES = {"flash_decode_attention": 0, "paged_flash_decode_attention": 0,
@@ -128,32 +141,38 @@ def reset_counters() -> None:
     DISPATCH_FALLBACKS.clear()
 
 
-def bundle_body(q_len: int, group: int, dtype) -> str:
+def bundle_body(q_len: int, group: int, dtype,
+                kv_format: str = "bf16") -> str:
     """The kernel body a bundle of ``q_len`` query tokens per row takes,
-    with ``group`` query heads per kv head and queries of ``dtype``:
-    ``"rows"``, ``"mma"`` or ``"tiled"`` (the table in the module
-    docstring). The rows body holds at most 8 rows (q_len x group)."""
+    with ``group`` query heads per kv head, queries of ``dtype`` and K/V
+    stored as ``kv_format`` (``"bf16"``: q's dtype; ``"int8"``,
+    ``"fp8"``): ``"rows"``, ``"qrows"``, ``"mma"`` or ``"tiled"`` (the
+    table in the module docstring). The rows bodies hold at most 8 rows
+    (q_len x group)."""
     gq = q_len * group
     if dtype == torch.bfloat16:
-        return "rows" if q_len == 1 and gq <= 8 else "mma"
+        if q_len == 1 and gq <= 8:
+            return "rows" if kv_format == "bf16" else "qrows"
+        return "mma"
     if dtype == torch.float32:
         return "rows" if gq <= 8 else "tiled"
     raise TypeError(f"no kernel body for {dtype} queries")
 
 
 def launch_plan(q_len: int, group: int, dtype, B: int, KV: int,
-                max_len: int, sm_count: int) -> dict:
+                max_len: int, sm_count: int, kv_format: str = "bf16") -> dict:
     """The body, its row tile and the split of the key range for one
     launch: ``body``, ``rows`` (rows per block), ``tiles`` (row tiles per
     kv head), ``n_split`` and ``split_keys``. Splits tile [0, max_len)
     exactly in whole units of ``_SPLIT_UNIT[body]`` keys (the last split
     may run past max_len, none is empty). Every body aims at ``_FILL``
-    blocks per SM; the mma body keeps its fp32 partials (which the merge
+    blocks per SM; the qrows body's splits hold at most
+    ``_QROWS_SPLIT_KEYS`` keys (the unit's multiple below); the mma body keeps its fp32 partials (which the merge
     reads back) within 1 / ``_MMA_PART_SHARE`` of the bf16 K/V bytes it
     streams (whatever the storage)."""
-    body = bundle_body(q_len, group, dtype)
+    body = bundle_body(q_len, group, dtype, kv_format)
     gq = q_len * group
-    if body == "rows":
+    if body in ("rows", "qrows"):
         rows = 1 << (gq - 1).bit_length()
     elif body == "tiled":
         rows = 64
@@ -170,6 +189,8 @@ def launch_plan(q_len: int, group: int, dtype, B: int, KV: int,
         per = -(-n_chunks // want)      # at most `want` splits
     else:
         want = max(1, -(-_FILL[body] * sm_count // base))
+        if body == "qrows":
+            want = max(want, -(-max_len // _QROWS_SPLIT_KEYS))
         per = max(1, n_chunks // want)
         per = pick_block(n_chunks, 1 << (per.bit_length() - 1))
     n_split = -(-n_chunks // per)
@@ -455,7 +476,8 @@ def _launch(name: str, q, k, v, ks, vs, pos, bt, max_len: int, bs: int,
         raise ValueError(f"{name}: an ancestor mask needs a paged pool and "
                          f"q_len <= {MAX_PAGED_Q_LEN}, got q_len {q_len}")
     plan = launch_plan(q_len, group, q.dtype, B, KV, max_len,
-                       _sm_count(q.device))
+                       _sm_count(q.device),
+                       format_of_dtype(k.dtype) if kv_code else "bf16")
     n_split = plan["n_split"]
     gq = q_len * group
     o_part = torch.empty((B * KV, n_split, gq, d), dtype=torch.float32,

@@ -193,6 +193,21 @@ def test_bundle_body_routing(q_len, group, dtype, body):
     q_len >= 2 goes to the tensor cores, and fp32 keeps the SIMT
     bodies."""
     assert tda.bundle_body(q_len, group, dtype) == body
+    assert tda.bundle_body(q_len, group, dtype, "bf16") == body
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("q_len,group,dtype,body", [
+    (1, 1, BF16, "qrows"), (1, 2, BF16, "qrows"), (1, 4, BF16, "qrows"),
+    (1, 8, BF16, "qrows"), (1, 16, BF16, "mma"), (2, 1, BF16, "mma"),
+    (7, 1, BF16, "mma"), (256, 1, BF16, "mma"), (1, 1, F32, "rows"),
+    (8, 1, F32, "rows"), (9, 1, F32, "tiled")])
+def test_bundle_body_routing_over_narrow_storage(q_len, group, dtype, body,
+                                                 fmt):
+    """bf16 decode steps (q_len 1, at most 8 rows) over int8/fp8 K/V take
+    the qrows body; every other bundle the body it takes over bf16 K/V
+    (fp32 queries keep the SIMT bodies, the card-against-CPU path)."""
+    assert tda.bundle_body(q_len, group, dtype, fmt) == body
 
 
 def test_bundle_body_refuses_other_dtypes():
@@ -235,13 +250,25 @@ def test_launch_plan_splits_tile_the_key_range(case):
 
 def test_launch_plan_at_the_serving_shapes():
     """Llama-2-7B's shapes on 132 SMs: the decode step keeps its split
-    (four 512-key splits on the rows body); a 256-token chunk takes four
+    (four 512-key splits on the rows body; eight of 256 keys on the qrows
+    body over narrow K/V); a 256-token chunk takes four
     64-row tiles on the tensor cores in four splits (its partials half
     of its K/V), the 8-row verify bundles four splits of one tile; on a
     card with a quarter of the SMs a bundle runs in one."""
     decode = tda.launch_plan(1, 1, BF16, 8, 32, 2048, 132)
     assert decode == {"body": "rows", "rows": 1, "tiles": 1, "n_split": 4,
                       "split_keys": 512}
+    for fmt in ("int8", "fp8"):
+        assert tda.launch_plan(1, 1, BF16, 8, 32, 2048, 132, fmt) == {
+            "body": "qrows", "rows": 1, "tiles": 1, "n_split": 8,
+            "split_keys": 256}
+        # the split counts of the groups the body holds (PERF.md)
+        assert [tda.launch_plan(1, g, BF16, 8, 32 // g, 2048, 132, fmt)[k]
+                for g in (2, 4, 8) for k in ("rows", "n_split")] \
+            == [2, 8, 4, 8, 8, 16]
+        # the engine's bundles over narrow pools stay on the tensor cores
+        assert tda.launch_plan(256, 1, BF16, 1, 32, 2048, 132, fmt) \
+            == tda.launch_plan(256, 1, BF16, 1, 32, 2048, 132)
     plan = {q_len: tda.launch_plan(q_len, 1, BF16, B, 32, 2048, 132)
             for q_len, B in ((256, 1), (29, 8), (7, 8), (5, 8))}
     assert {k: (p["body"], p["rows"], p["tiles"], p["n_split"])
@@ -266,25 +293,138 @@ def _rn32(v64, rounded=False):
     return out
 
 
+def _div_bound_consts(bound):
+    """csrc/div_bound.cuh's zh (1 / bound rounded down to float32) and zl
+    (RN(1 / bound - zh), positive), as float64 values."""
+    zh = np.float32(1.0) / np.float32(bound)
+    if np.float64(zh) > 1.0 / bound:
+        zh = np.nextafter(zh, np.float32(0))
+    zl = np.float32(1.0 / bound - np.float64(zh))
+    assert zl > 0
+    return np.float64(zh), np.float64(zl)
+
+
+def _div_bound_emulated(x64, bound):
+    """div_bound on float32 values held in float64: RN(x * zh + RN(x *
+    zl)), its one fma exact in float64 before the last rounding."""
+    zh, zl = _div_bound_consts(bound)
+    u = _rn32(x64 * zl).astype(np.float64)        # x * zl exact in float64
+    p = x64 * zh                                  # exact in float64
+    assert np.array_equal((p + u) - p, u)         # and so is the sum
+    return _rn32(p + u)
+
+
 @pytest.mark.parametrize("bound", [127.0, 448.0])
 def test_div_bound_emulated_is_correctly_rounded(bound):
-    """The tensor-core body's dequant divides by the absmax bound without
-    a division (``csrc/div_bound.cuh``): q0 = RN(x * r) with r = RN(1 /
-    bound), then RN(q0 + r * RN(x - q0 * bound)), both corrections fused.
-    Emulated in float64 (each product and the residual are exact there;
-    a rounded sum never lands on a float32 midpoint) over
-    every float32 x in [1, 2), it equals RN(x / bound). A power-of-two
-    scale of x scales every step exactly, so this covers every binade
-    whose intermediates stay normal; the card checks the compiled code."""
+    """The quantized bodies divide by the absmax bound without a division
+    (``csrc/div_bound.cuh``): RN(x * zh + RN(x * zl)) with zh = 1 / bound
+    rounded down and zl = RN(1 / bound - zh), one multiply and one fma.
+    Emulated in float64 (each product and the fma's sum are exact there)
+    over every float32 x in [1, 2), it equals RN(x / bound) (whose float64
+    quotient never lands on a float32 midpoint). A power-of-two scale of
+    x scales every step exactly, so this covers every binade whose
+    intermediates stay normal; the card checks the compiled code."""
     x = (np.uint32(0x3F800000) | np.arange(1 << 23, dtype=np.uint32)) \
         .view(np.float32).astype(np.float64)
-    r = np.float64(np.float32(1.0) / np.float32(bound))
-    q0 = _rn32(x * r).astype(np.float64)               # exact in float64
-    e = _rn32(x - q0 * bound).astype(np.float64)       # exact in float64
-    got = _rn32(q0 + e * r, rounded=True)
+    got = _div_bound_emulated(x, bound)
     want = _rn32(x / bound, rounded=True)
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    # the constants csrc/div_bound.cuh spells in hex
+    assert [c.hex() for c in _div_bound_consts(bound)] == (
+        ["0x1.0204080000000p-7", "0x1.0204080000000p-35"] if bound == 127
+        else ["0x1.2492480000000p-9", "0x1.24924a0000000p-33"])
     # exact_scale's range: every nonzero |q| * s of int8 (1..127) and fp8
     # (2^-9..448) stays inside [2^-90, 2^100] for s in [2^-80, 2^90]
     assert 2.0 ** -9 * 2.0 ** -80 >= 2.0 ** -90
     assert 448 * 2.0 ** 90 <= 2.0 ** 100
+
+
+# (q_len, group, B, KV, max_len) of decode steps over narrow K/V
+NARROW_PLAN_CASES = [(1, 1, 8, 32, 2048), (1, 4, 8, 8, 2048),
+                     (1, 8, 2, 2, 1000), (1, 2, 3, 2, 272), (1, 1, 1, 1, 17)]
+
+
+@pytest.mark.parametrize("case", NARROW_PLAN_CASES)
+def test_launch_plan_splits_narrow_decode_steps(case):
+    """The qrows body's splits tile [0, max_len) in whole 64-key units
+    (four 16-key pages) of at most 256 keys, none empty; its row tile
+    holds the group."""
+    q_len, group, B, KV, max_len = case
+    for fmt in ("int8", "fp8"):
+        p = tda.launch_plan(q_len, group, BF16, B, KV, max_len, 132, fmt)
+        assert p["body"] == "qrows" and p["split_keys"] % 64 == 0
+        assert p["split_keys"] <= tda._QROWS_SPLIT_KEYS
+        assert p["n_split"] * p["split_keys"] >= max_len
+        assert (p["n_split"] - 1) * p["split_keys"] < max_len
+        assert p["tiles"] == 1 and p["rows"] in (1, 2, 4, 8)
+        assert p["rows"] >= group > p["rows"] // 2
+
+
+def _bf16_f32(bits):
+    """bf16 bit patterns (uint32, low 16 bits) as float32, exactly."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def _narrow_f32_emulated(codes, fmt):
+    """csrc/widen.cuh's narrow4_f32 on each storage byte, in numpy. int8:
+    the byte with its sign bit flipped under 2^23's exponent, minus 2^23 +
+    128 (float32, exact). e4m3: widen2, the byte placed in a bf16 bit
+    pattern times 2^120 (float32, exact), then the bf16 as f32."""
+    r = codes.astype(np.uint32)
+    if fmt == "int8":
+        out = (np.uint32(0x4B000000) | (r ^ 0x80)).view(np.float32) \
+            - np.float32(8388736.0)
+    else:
+        h = r << 8                       # the byte in the halfword's top
+        out = _bf16_f32(((h >> 4) & 0x07F0) | (h & 0x8000)) \
+            * np.float32(2.0 ** 120)
+    assert not (out.view(np.uint32) & 0xFFFF).any()   # a bf16 value
+    return out
+
+
+def _qrows_dequant_emulated(codes, s, fmt):
+    """flash_decode_qrows' dequant of ``codes`` (uint8) under scales ``s``
+    (float32, broadcast against them), in numpy float32/uint32:
+    narrow4_f32, __fmul_rn by the scale, div_bound (as its own test
+    emulates it), then round to nearest even to bf16 (the bits of
+    cvt.rn.bf16x2.f32). Returns the bf16 bits as uint16."""
+    bound = 127.0 if fmt == "int8" else 448.0
+    x = (_narrow_f32_emulated(codes, fmt) * s).astype(np.float32)
+    u = _div_bound_emulated(x.astype(np.float64), bound).view(np.uint32)
+    rounded = (u + np.uint32(0x7FFF) + ((u >> 16) & 1)) & np.uint32(0xFFFF0000)
+    return (rounded >> 16).astype(np.uint16)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_qrows_dequant_emulated_is_unpack_absmax(fmt):
+    """The decode step's dequant without division or conversion
+    instructions, emulated bit for bit, equals f32(q) * s / bound rounded
+    to bf16 (the JAX prologue, torch's true division on the CPU) for
+    every storage byte (e4m3's two NaN codes aside: the quantizer never
+    writes them) over a spread of scales: exact_scale's edges (0, 2^-80,
+    2^90), absmax-like ones and 200 log-uniform ones between; and equals
+    the port's unpack_absmax(..., torch.bfloat16) wherever its 1e-9 clamp
+    leaves the scale alone."""
+    from paddle_tpu_torch.quantization.intx import (div_exact, format_bound,
+                                                    format_dtype,
+                                                    unpack_absmax)
+
+    rng = np.random.RandomState(11)
+    scales = np.concatenate([
+        [0.0, 2.0 ** -80, 2.0 ** 90, 1e-9, 1.0, 0.5, 3.7, 250.0, 0.1234567,
+         np.nextafter(np.float32(2.0 ** -80), np.float32(1)),
+         np.nextafter(np.float32(2.0 ** 90), np.float32(0))],
+        rng.uniform(0.01, 8.0, 40),
+        2.0 ** rng.uniform(-80, 90, 200)]).astype(np.float32)
+    codes = np.arange(256, dtype=np.uint8)
+    if fmt == "fp8":
+        codes = codes[(codes & 0x7F) != 0x7F]
+    got = _qrows_dequant_emulated(codes[None, :], scales[:, None], fmt)
+    q = torch.from_numpy(codes).view(format_dtype(fmt))[None, :]
+    s = torch.from_numpy(scales)[:, None]
+    want = div_exact(q.float() * s, format_bound(fmt)).to(torch.bfloat16)
+    assert np.array_equal(got, want.view(torch.int16).numpy()
+                          .view(np.uint16))
+    ok = scales >= 1e-9
+    ref = unpack_absmax(q, s, fmt, torch.bfloat16)
+    assert torch.equal(ref.view(torch.int16)[ok], want.view(torch.int16)[ok])
