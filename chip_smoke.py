@@ -54,12 +54,14 @@ Phases, each printing JSON lines (and failing loudly on any check):
    (``bound_ms``, by bytes or by operations). The decode kernels run at
    the serving shapes, the paged ones also at q_len 16 / 17 and
    ``MMA_ROWS`` + 1 (the tensor-core body's one-tile and wide-tile
-   edges); each decode row names the kernel body it took (``rows``,
-   ``mma``, ``tiled``). The flash-attention kernels K1-K3 (each row
+   edges); each decode row names the kernel body it took (``qrows``,
+   ``rows``, ``mma``, ``tiled``). The flash-attention kernels K1-K3 (each row
    naming its body, with its TFLOP/s and share of the bound) compare
    out, lse, dq, dk and dv at ``FLASH_SHAPES`` (the training shape in
    bf16 and fp32, Llama-2-7B's heads, non-causal, segment ids, s =
-   1000).
+   1000); a bf16 element may also differ from the plain value by one
+   rounding step if the exact value (float64, the same bf16 roundings)
+   lies between them (``bf16_flips``).
    The quantized kernels: K5 and K7 (flash decode over int8 / fp8 K/V
    with per-token-per-head scales, dequantized in the kernel) at the
    same serving shapes against their plain versions, with SDPA over the
@@ -68,7 +70,8 @@ Phases, each printing JSON lines (and failing loudly on any check):
    matmul) at Llama-2-7B's linear shapes for a decode step (M 8), the
    int8 [2, 2] and [4, 2, 2] verify bundles of 8 slots (M 56, 232) and
    prefill chunks of 128 and 256 tokens, each row naming its body
-   (``gemv``, ``wgmma`` with its ``qmm_plan``, ``simt``), with
+   (``gemv`` with its ``gemv_plan`` in bf16, ``wgmma`` with its
+   ``qmm_plan``, ``simt``) and its bound share, with
    ``torch.matmul`` against the weight dequantized beforehand as the
    yardstick; ``host`` lines give the K9 wrapper's host time per call
    (M 8 and 256, the stream held). K8 (the paged kernels under
@@ -79,10 +82,10 @@ Phases, each printing JSON lines (and failing loudly on any check):
    tree (29); SDPA with the boolean mask over the gathered pool is the
    yardstick. ``split_sweep``: the tensor-core body at the 256-token
    chunk (bf16, int8) and the [4, 2, 2] and [2, 2] verify bundles under
-   forced split counts 1, 2, 4 and 8, and the int8 decode step
-   (``qrows``, groups 1, 2, 4 and 8, rows as the served traffic's decode
-   iteration holds them and as the kernel rows draw them) under 1 to 32
-   (each output held to the plain version),
+   forced split counts 1, 2, 4 and 8, and the int8 and bf16 decode
+   steps (``qrows``, groups 1, 2, 4 and 8, rows as the served traffic's
+   decode iteration holds them and as the kernel rows draw them) under 1
+   to 32 (each output held to the plain version),
    beside the count ``launch_plan`` picks.
 5. ``serve``: Llama-2-7B at full width and depth, bf16, seeded random
    N(0, 0.02) weights made on the card, served by the paged engine
@@ -92,17 +95,19 @@ Phases, each printing JSON lines (and failing loudly on any check):
    count; the paged kernel launched exactly layers x (decode steps +
    prefill chunks) times with no paged fallback, and split by kernel
    body exactly: every chunk on the tensor-core body (``mma``; in fp32
-   the ``tiled`` SIMT body), every decode step on the ``rows`` body. A
-   second engine with 60% of the worst-case blocks must preempt and
-   still complete every request. ``generate`` on two prompts launches
-   the contiguous kernel (``rows``) once per layer per decode step.
+   the ``tiled`` SIMT body), every decode step on the decode-step body
+   (``qrows``; in fp32 ``rows``). A second engine with 60% of the
+   worst-case blocks must preempt and still complete every request.
+   ``generate`` on two prompts launches the contiguous kernel (``qrows``;
+   in fp32 ``rows``) once per layer per decode step.
    Teacher-forced check: every emitted
    token is the argmax of the plain uncached forward over prompt +
    emitted prefix wherever that forward's top-1/top-2 gap exceeds 0.1.
    In bf16 the agreement is reported; the whole phase then runs again
    on the same weights in fp32, where the check is asserted.
    ``profile``: wall and device time of a prefill and a decode
-   iteration of the bf16 engine, and the kernels that take the most.
+   iteration of the bf16 engine, and the kernels that take the most
+   (``flash_decode_qrows`` must be among the decode iteration's).
    ``serve_spec``: the same bf16 target with ``truncated_draft(target,
    2)`` over the same traffic in the chain (spec_k 4), tree [2, 2] and
    tree [4, 2, 2] lanes, and tree [2, 2] at 60% of the worst-case
@@ -111,8 +116,8 @@ Phases, each printing JSON lines (and failing loudly on any check):
    K6, the chain's verify and its k + 1 draft forwards go through K6,
    the tree's verify and depth + 1 draft forwards through K8 and
    nothing else, every bundle of q_len >= 2 on the tensor-core body and
-   every q_len 1 draft step on the rows body (``qrows`` over int8
-   pools); no fallback. Reports
+   every q_len 1 draft step on the decode-step body (``qrows``); no
+   fallback. Reports
    tokens/s beside the plain
    engine's, rounds, drafted and accepted tokens, the accept histogram,
    tokens equal to the plain engine's and preemptions. A ``profile`` of
@@ -359,6 +364,7 @@ def kernel_phase(rng):
                            "plain_ms": cuda_ms(plain, 5),
                            "library_ms": cuda_ms(lib, 20),
                            "bound_ms": bound, "bound_by": bound_by}
+                    row["bound_share"] = bound / row["ms"]
                     emit(row)
                     rows.append(row)
                     check(ok, f"{kernel} disagrees with its plain version: "
@@ -427,10 +433,68 @@ def flash_bound(name, b, s, h, d, isz, pairs, dname):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def flash_exact(q, k, v, do, seg, causal, scale, out_bf16):
+    """The plain versions' formulas (``flash_attention_fwd_ref``,
+    ``flash_attention_bwd_ref``) in float64 on the same bf16 inputs, with
+    their bf16 roundings kept (p before P.V and dV, ds before dK and dQ;
+    delta from the bf16 output ``out_bf16``): the exact values that a
+    bf16 out, dq, dk and dv round. [b, s, h, d] float64 each."""
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    bf = torch.bfloat16
+    qd, kd, vd, dod = (t.double().transpose(1, 2) for t in (q, k, v, do))
+    s = torch.matmul(qd, kd.transpose(-1, -2)) * scale
+    mask = fa._visible(q.shape[1], seg, causal, q.device)
+    if mask is not None:
+        s = s.masked_fill(~mask, fa.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.matmul(p.to(bf).double(), vd) / l
+    del p
+    p = torch.exp(s - (m + torch.log(l)))
+    del s
+    dv = torch.matmul(p.to(bf).double().transpose(-1, -2), dod)
+    delta = (dod * out_bf16.double().transpose(1, 2)).sum(dim=-1)
+    ds = (p * (torch.matmul(dod, vd.transpose(-1, -2)) - delta[..., None])
+          * scale).to(bf).double()
+    del p
+    dk = torch.matmul(ds.transpose(-1, -2), qd)
+    dq = torch.matmul(ds, kd)
+    return tuple(x.transpose(1, 2) for x in (out, dq, dk, dv))
+
+
+def bf16_flips(got, plain, exact, atol):
+    """The bf16 check of a kernel output against its plain version, held
+    to the exact value: an element passes within ``atol`` of the plain
+    value, or as a one-step rounding flip: the two are neighbouring bf16
+    values of one sign and the exact value (``flash_exact``) lies between
+    them, so each fp32 sum rounded to its own side of the same edge.
+    Returns (every element passes, elements that pass only as flips)."""
+    import torch
+
+    x, y = got.double(), plain.double()
+    d = (x - y).abs()
+    lo, hi = torch.minimum(x, y), torch.maximum(x, y)
+    _, e = torch.frexp(torch.minimum(x.abs(), y.abs()))
+    step = torch.ldexp(torch.ones_like(d), e - 8)  # bf16 spacing there
+    flip = (d == step) & (x * y > 0) & (lo <= exact) & (exact <= hi)
+    near = d <= atol
+    return bool((near | flip).all()), int((flip & ~near).sum())
+
+
 def flash_kernel_phase(rng):
     """K1-K3 against their plain versions on the same inputs, with their
     times, the plain versions' and SDPA's (forward for K1, backward for
-    K2 and K3), and their bounds. Returns the rows."""
+    K2 and K3), and their bounds. Returns the rows.
+
+    fp32 outputs pass within the fp32 atol of the plain version. A bf16
+    out, dq, dk or dv element passes within the bf16 atol of the plain
+    version, or as a one-step rounding flip around the exact value
+    (``bf16_flips``); the rows give both results' largest distance to
+    that value (``exact_err``: kernel, plain)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -471,6 +535,20 @@ def flash_kernel_phase(rng):
         errs = {"out": err(out, want_out), "lse": err(lse, want_lse),
                 "dq": err(dq, want[0]), "dk": err(dk, want[1]),
                 "dv": err(dv, want[2])}
+        passed = {x: e <= ATOL[dname] for x, e in errs.items()}
+        flips, exact_err = {}, {}
+        if dtype == torch.bfloat16:
+            got = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+            plain = dict(zip(("out", "dq", "dk", "dv"), (want_out,) + want))
+            exact = dict(zip(("out", "dq", "dk", "dv"), flash_exact(
+                q, k, v, do, seg, causal, scale, want_out)))
+            for x in got:
+                passed[x], flips[x] = bf16_flips(got[x], plain[x], exact[x],
+                                                 ATOL[dname])
+                exact_err[x] = [(got[x].double() - exact[x]).abs().max()
+                                .item(), (plain[x].double() - exact[x]).abs()
+                                .max().item()]
+            del exact, got, plain
         del want
         # yardsticks: SDPA forward, and SDPA's backward from a saved graph
         qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
@@ -520,7 +598,8 @@ def flash_kernel_phase(rng):
                    "causal": causal, "segments": with_seg,
                    "max_abs_err": e,
                    "errs": {x: errs[x] for x in checked[name]},
-                   "atol": ATOL[dname], "ok": e <= ATOL[dname], "ms": ms,
+                   "atol": ATOL[dname],
+                   "ok": all(passed[x] for x in checked[name]), "ms": ms,
                    "plain_ms": plain_ms,
                    "plain_covers": "forward" if name == "flash_fwd"
                    else "dq, dk and dv together",
@@ -531,6 +610,11 @@ def flash_kernel_phase(rng):
                    "bound_ms": bound, "bound_by": bound_by,
                    "tflops": flash_flops(name, d, pairs) / ms / 1e9,
                    "bound_share": bound / ms}
+            if flips:
+                row["flips"] = {x: flips[x] for x in checked[name]
+                                if x in flips}
+                row["exact_err"] = {x: exact_err[x] for x in checked[name]
+                                    if x in exact_err}
             emit(row)
             rows.append(row)
             check(row["ok"], f"{name} disagrees with its plain version: "
@@ -870,12 +954,13 @@ def serve_phase(model, cfg, requests, kind, strict):
                             f"expected {L} x ({st['steps']} steps + "
                             f"{st['prefill_chunks']} chunks) = {expect}")
         # every chunk on the tensor cores (fp32: the SIMT tiles), every
-        # decode step on the rows body
+        # decode step on the decode-step body (fp32: the rows body)
         name = "paged_flash_decode_attention"
-        chunk = "mma" if dname == "bfloat16" else "tiled"
+        chunk, step = ("mma", "qrows") if dname == "bfloat16" \
+            else ("tiled", "rows")
         bodies = check_bodies(tag, bodies, {
             f"{name}/{chunk}": L * st["prefill_chunks"],
-            f"{name}/rows": L * st["steps"]})
+            f"{name}/{step}": L * st["steps"]})
         paged_fb = {k: v for k, v in fallbacks.items()
                     if k.startswith("paged_")}
         check(not paged_fb, f"{tag}: paged fallbacks {paged_fb}")
@@ -934,11 +1019,10 @@ def profile_phase(model, requests, kind, kv_format="bf16"):
     decode = window(10)
     weights = next((m.fmt for m in model.modules() if hasattr(m, "fmt")),
                    "bfloat16")
-    if kv_format != "bf16":
-        top = [k for k, _ in decode["top_device_ms"]]
-        check(any("flash_decode_qrows" in k for k in top),
-              f"{kv_format} decode iteration: flash_decode_qrows is not "
-              f"among its top kernels {top}")
+    top = [k for k, _ in decode["top_device_ms"]]
+    check(any("flash_decode_qrows" in k for k in top),
+          f"{kv_format} decode iteration: flash_decode_qrows is not "
+          f"among its top kernels {top}")
     emit({"phase": "profile", "model": "llama2_7b", "dtype": "bfloat16",
           "weights": weights, "kv_format": kv_format,
           "slots": 8, "prefill_iteration": prefill,
@@ -973,8 +1057,9 @@ def generate_phase(model, cfg, requests, kind, strict):
     check(k4 == expect, f"{dname} generate: contiguous kernel launched {k4} "
                         f"times, expected {cfg.num_hidden_layers} x {N - 1} "
                         f"= {expect}")
+    step = "qrows" if dname == "bfloat16" else "rows"
     check_bodies(f"{dname} generate", da.BODY_LAUNCHES,
-                 {"flash_decode_attention/rows": expect})
+                 {f"flash_decode_attention/{step}": expect})
     row = {"phase": "generate", "dtype": dname, "B": 2, "prompt_len": S,
            "new_tokens": N, "seconds": secs, "tokens_per_s": 2 * N / secs,
            "kernel_launches": launches, "fallbacks": fallbacks, "card": kind}
@@ -1027,14 +1112,14 @@ def expected_spec_bodies(L, Ld, overrides, st, quant):
     """The same launches split by kernel body (bf16): chunks, verify
     bundles and every draft-tree level wider than one node on the
     tensor cores; the chain's draft steps and the tree's root level
-    (q_len 1) on the rows body (``qrows`` over int8/fp8 pools)."""
+    (q_len 1) on the decode-step body ``qrows``, over every pool."""
     sp = st["spec"]
     chunks, rounds, drafts = st["prefill_chunks"], sp["rounds"], \
         sp["draft_rounds"]
     sfx = "_quant" if quant else ""
     paged, tree = "paged_flash_decode_attention" + sfx, \
         "paged_flash_decode_attention_tree" + sfx
-    rows = "qrows" if quant else "rows"
+    rows = "qrows"
     if "spec_tree" in overrides:
         depth = len(overrides["spec_tree"])
         return {f"{paged}/mma": (L + Ld) * chunks,
@@ -1676,25 +1761,26 @@ def tree_kernel_phase(rng):
 
 # the split counts launch_plan chooses between, at the shapes of the
 # serving path: (label, B, q_len, pool, tree, group); the bundles run the
-# tensor-core body, the int8 decode step flash_decode_qrows (Llama-2-7B's
-# group 1, and the GQA groups its rows hold) over two kinds of rows:
-# "engine" as the served traffic's decode iteration holds them (the first
-# eight prompts of TRAFFIC, every slot taken: the main path), "ragged" as
-# the kernel rows draw them (two of eight empty)
+# tensor-core body, the int8 and bf16 decode steps flash_decode_qrows
+# (Llama-2-7B's group 1, and the GQA groups its rows hold) over two kinds
+# of rows: "engine" as the served traffic's decode iteration holds them
+# (the first eight prompts of TRAFFIC, every slot taken: the main path),
+# "ragged" as the kernel rows draw them (two of eight empty)
 SPLIT_SHAPES = (("chunk", 1, 256, "bf16", None, 1),
                 ("chunk", 1, 256, "int8", None, 1),
                 ("[4,2,2]", 8, 29, "bf16", (4, 2, 2), 1),
                 ("[4,2,2]", 8, 29, "int8", (4, 2, 2), 1),
                 ("[2,2]", 8, 7, "bf16", (2, 2), 1)) + tuple(
-    (f"decode {rows}", 8, 1, "int8", None, group)
+    (f"decode {rows}", 8, 1, pool, None, group) for pool in ("int8", "bf16")
     for group in (1, 2, 4, 8) for rows in ("engine", "ragged"))
 
 
 def split_sweep_phase(rng):
     """The tensor-core body (bundles; 1 to 8 splits) and the decode
-    step's body (int8 pool, groups 1 to 8; 1 to 32 splits) under forced
-    split counts at Llama-2-7B's shapes, each output against the plain
-    version: the measurement behind ``launch_plan``'s split rules.
+    step's body (int8 and bf16 pools, groups 1 to 8; 1 to 32 splits)
+    under forced split counts at Llama-2-7B's shapes, each output against
+    the plain version: the measurement behind ``launch_plan``'s split
+    rules.
     Reports the split count the plan picks beside the times. The decode
     rows draw their tensors from a generator of their own, so the later
     phases' draws from the card's default generator are as before."""
@@ -1728,8 +1814,10 @@ def split_sweep_phase(rng):
                 N, bs, KV, d, device=dev, generator=g), pool)
             scales = dict(k_scale=ksc, v_scale=vsc)
         else:
-            kp = torch.randn(N, bs, KV, d, device=dev).to(torch.bfloat16)
-            vp = torch.randn(N, bs, KV, d, device=dev).to(torch.bfloat16)
+            kp = torch.randn(N, bs, KV, d, device=dev, generator=g) \
+                .to(torch.bfloat16)
+            vp = torch.randn(N, bs, KV, d, device=dev, generator=g) \
+                .to(torch.bfloat16)
             scales = {}
         bt = torch.tensor((rng.permutation(N - 1)[:B * nb] + 1)
                           .reshape(B, nb).astype("int32"), device=dev)
@@ -1823,11 +1911,14 @@ def quant_matmul_phase():
                     err = (got.float() - want.float()).abs().max().item()
                     bound, bound_by = qmm_bound(M, N, K, isz, dname)
                     body = qm.qmm_body(M, dtype)
+                    plan = None
+                    if body == "wgmma":
+                        plan = qm.qmm_plan(M, N, K, qm._sm_count(dev))
+                    elif dtype == torch.bfloat16:
+                        plan = qm.gemv_plan(M, N, K, qm._sm_count(dev))
                     row = {"phase": "kernel", "name": "quant_matmul",
                            "weight_format": fmt, "dtype": dname, "M": M,
-                           "N": N, "K": K, "body": body,
-                           "plan": qm.qmm_plan(M, N, K, qm._sm_count(dev))
-                           if body == "wgmma" else None,
+                           "N": N, "K": K, "body": body, "plan": plan,
                            "max_abs_err": err,
                            "atol": ATOL[dname], "ok": err <= ATOL[dname],
                            "ms": cuda_ms(run, 50),
@@ -1835,6 +1926,7 @@ def quant_matmul_phase():
                            "library_ms": cuda_ms(lib, 20),
                            "library": "torch.matmul(x, dequantized W.T)",
                            "bound_ms": bound, "bound_by": bound_by}
+                    row["bound_share"] = bound / row["ms"]
                     emit(row)
                     rows.append(row)
                     check(row["ok"], f"quant_matmul disagrees with its plain "

@@ -35,13 +35,14 @@
 //     device memory;
 //   - four block bodies, chosen by the wrapper from q_len, the group,
 //     q's dtype and the storage (decode_attention.py bundle_body):
-//       flash_decode_rows (the bf16 decode step over bf16 K/V, q_len 1,
-//         and fp32 bundles of at most 8 rows): four warps stream keys
-//         with the head dimension split across lanes (coalesced row
-//         reads, no staging);
-//       flash_decode_qrows (the bf16 decode step over int8/fp8 K/V):
-//         16-byte rows, the dequant without division or conversion
-//         instructions, the next keys' bytes in flight (see its note);
+//       flash_decode_rows (fp32 bundles of at most 8 rows, the
+//         card-against-CPU parity path): four warps stream keys with the
+//         head dimension split across lanes (coalesced row reads, no
+//         staging);
+//       flash_decode_qrows (the bf16 decode step, q_len 1, over bf16,
+//         int8 or fp8 K/V): 16-byte rows, the narrow dequant without
+//         division or conversion instructions, the next keys' bytes in
+//         flight (see its note);
 //       flash_decode_mma (every bf16 bundle of q_len >= 2: prefill chunks,
 //         verify bundles, draft-tree levels): bf16 mma.sync m16n8k16 with
 //         fp32 accumulate, K/V tiles in shared memory through a cp.async
@@ -1131,22 +1132,26 @@ __global__ void __launch_bounds__(kThreads)
 // The bf16 decode step over int8/fp8 K/V
 // ---------------------------------------------------------------------------
 //
-// flash_decode_qrows: bf16 queries over int8 or fp8 e4m3 K/V with their
-// per-(token, kv head) f32 scales, q_len 1 and at most SR <= 8 rows (the
-// GQA group; a MASKED bundle of at most SR tokens alike): the decode step
-// of K5 and K7. It replaces the body _decode_kernel_quant
-// (decode_attention.py:371) of _flash_decode (:491) and
-// _paged_flash_decode (:685) at that shape: the prologue widens each K/V
-// value to f32, multiplies it by its row's scale, divides by the bound and
-// rounds to q's dtype; _cell_partial then scores and accumulates in f32.
+// flash_decode_qrows: bf16 queries over bf16 K/V, or over int8 or fp8
+// e4m3 K/V with their per-(token, kv head) f32 scales, q_len 1 and at most
+// SR <= 8 rows (the GQA group; a MASKED bundle of at most SR tokens
+// alike): the decode step of K4/K6 and of K5/K7. It replaces the bodies
+// _decode_kernel (decode_attention.py:336) and _decode_kernel_quant
+// (:371) of _flash_decode (:491) and _paged_flash_decode (:685) at that
+// shape: the quantized prologue widens each K/V value to f32, multiplies
+// it by its row's scale, divides by the bound and rounds to q's dtype;
+// _cell_partial then scores and accumulates in f32 (bf16 storage: the
+// values as stored).
 //
-// What bounds it: bytes. Each narrow K/V byte (and 8 bytes of scales a
-// key and kv head) is read once for 2 flops a row, far below the card's
-// operations line; but the exact dequant takes instructions of its own
-// (about nine a value here), which puts the issue rate close to the byte
-// bound too, and the SIMT rows body it replaces spent 15x its bound there
-// (IEEE division and conversion instructions, 4-byte loads, nothing in
-// flight while it computed). What the design does about that:
+// What bounds it: bytes. Each K/V byte (and, narrow, 8 bytes of scales a
+// key and kv head) is read once for 2 flops a row (1 a byte in bf16), far
+// below the card's operations line; but the exact dequant takes
+// instructions of its own (about nine a narrow value here), which puts
+// the issue rate close to the byte bound too, and the SIMT rows body it
+// replaces spent 15x its bound there (IEEE division and conversion
+// instructions, 4-byte loads, nothing in flight while it computed); over
+// bf16 K/V that body spent 3.6x (8-byte loads, a 5-shuffle reduction a
+// key and row, nothing in flight). What the design does about that:
 //   - no conversion or division unit in the dequant: narrow4_f32 widens
 //     the bytes to f32 (int8: a byte permute under 2^23's exponent and one
 //     subtraction; e4m3: widen2's bf16 pairs and a shift), __fmul_rn
@@ -1155,10 +1160,11 @@ __global__ void __launch_bounds__(kThreads)
 //     them back: the values equal unpack_absmax's to the bit. A warp votes
 //     once a step over its keys' scales (exact_scale); a scale outside
 //     div_bound's range takes the IEEE division value by value;
-//   - 16-byte rows: a lane loads C narrow values of a key (C 16; 8 at SR 4
-//     and 4 at SR 8, so q and the accumulators stay in registers), a row
-//     is D / C lanes and a warp load covers 32 C / D keys; a key's dot
-//     reduces over its own lanes only (3 shuffles at D 128, C 16);
+//   - 16-byte rows: a lane loads C values of a key (C 16; 8 at SR 4 and 4
+//     at SR 8, so q and the accumulators stay in registers: 16, 8 or 4
+//     bytes narrow, 32, 16 or 8 in bf16), a row is D / C lanes and a warp
+//     load covers 32 C / D keys; a key's dot reduces over its own lanes
+//     only (3 shuffles at D 128, C 16);
 //   - each lane group keeps its own (m, l, acc) over its keys, U a step
 //     (4 from 4 rows, where a key's dots and accumulation outweigh the
 //     step's softmax); the groups of a warp merge by shuffles, the four
@@ -1170,10 +1176,10 @@ __global__ void __launch_bounds__(kThreads)
 //     the table and the scales. Keys past the split's end load its last
 //     key (masked), so no load sits under a branch. A key's page is
 //     kpos / bs as one multiply-high by a reciprocal computed once.
-template <int D, int SR>
+template <typename S, int D, int SR>
 struct QRows {
   static constexpr int C = SR <= 2 ? 16 : 32 / SR;  // values a lane loads
-  static constexpr int W = C / 4;                   // as 32-bit words
+  static constexpr int W = C * (int)sizeof(S) / 4;  // as 32-bit words
   static constexpr int LPR = D / C;                 // lanes per key row
   static constexpr int G = 32 / LPR;                // keys per warp load
   static constexpr int U = SR >= 4 ? 4 : 2;         // keys per group a step
@@ -1186,7 +1192,10 @@ struct QRows {
 // the scales there
 template <int N>
 __device__ __forceinline__ void ld_stream(const void* p, uint32_t* w) {
-  if constexpr (N == 4) {
+  if constexpr (N == 8) {
+    ld_stream<4>(p, w);
+    ld_stream<4>(static_cast<const uint4*>(p) + 1, w + 4);
+  } else if constexpr (N == 4) {
     asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
         : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
         : "l"(p));
@@ -1195,18 +1204,27 @@ __device__ __forceinline__ void ld_stream(const void* p, uint32_t* w) {
         : "=r"(w[0]), "=r"(w[1])
         : "l"(p));
   } else {
-    static_assert(N == 1, "1, 2 or 4 words");
+    static_assert(N == 1, "1, 2, 4 or 8 words");
     asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];\n" : "=r"(w[0]) : "l"(p));
   }
 }
 
-// The 4 W narrow values in w dequantized with scale s in the prologue's
-// order, f32(q) * s / bound rounded to bf16, as f32. EXACT: s passed
-// exact_scale, so div_bound's division is the IEEE one; else the IEEE
-// division itself.
+// The values of the W words in w as f32: bf16 storage, its 2 W values as
+// stored (a shift or a mask each); narrow storage, its 4 W values
+// dequantized with scale s in the prologue's order, f32(q) * s / bound
+// rounded to bf16. EXACT: s passed exact_scale, so div_bound's division is
+// the IEEE one; else the IEEE division itself.
 template <typename S, int W, bool EXACT>
 __device__ __forceinline__ void dequant_bf16(const uint32_t* w, float s,
                                              float* out) {
+  if constexpr (std::is_same<S, bf16>::value) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      out[2 * i] = bf16_lo(w[i]);
+      out[2 * i + 1] = bf16_hi(w[i]);
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < W; ++i) {
     float f[4];
@@ -1239,7 +1257,8 @@ __global__ void __launch_bounds__(kThreads)
                        float* __restrict__ m_part, float* __restrict__ l_part,
                        int q_len, int H, int KV, int max_len, int bs, int nb,
                        int split_keys, float scale) {
-  using P = QRows<D, SR>;
+  using P = QRows<S, D, SR>;
+  constexpr bool kScaled = !std::is_same<S, bf16>::value;
   constexpr int C = P::C, W = P::W, LPR = P::LPR, G = P::G, U = P::U;
   constexpr int STEP = kWarps * P::KW;  // keys of the block a step
   __shared__ float sM[kWarps][SR];
@@ -1319,8 +1338,12 @@ __global__ void __launch_bounds__(kThreads)
     const long long at = (long long)tok * (KV * D);
     ld_stream<W>(k_lane + at, kw);
     ld_stream<W>(v_lane + at, vw);
-    sk = __ldg(ks + (long long)tok * KV + kvh);
-    sv = __ldg(vs + (long long)tok * KV + kvh);
+    if constexpr (kScaled) {
+      sk = __ldg(ks + (long long)tok * KV + kvh);
+      sv = __ldg(vs + (long long)tok * KV + kvh);
+    } else {
+      sk = sv = 1.f;
+    }
   };
 
   int kc = k_begin + warp * P::KW;  // this warp's first key of the step
@@ -1407,10 +1430,12 @@ __global__ void __launch_bounds__(kThreads)
       }
     };
     bool exact = true;
+    if constexpr (kScaled) {
 #pragma unroll
-    for (int u = 0; u < U; ++u)
-      exact = exact && exact_scale(skr[u]) && exact_scale(svr[u]);
-    if (__all_sync(0xffffffffu, exact))
+      for (int u = 0; u < U; ++u)
+        exact = exact && exact_scale(skr[u]) && exact_scale(svr[u]);
+    }
+    if (!kScaled || __all_sync(0xffffffffu, exact))
       step(std::true_type());
     else
       step(std::false_type());
@@ -1573,14 +1598,12 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
 enum Body { kBodyRows = 0, kBodyTiled = 1, kBodyMma = 2, kBodyQRows = 3 };
 
 // rows: the row tile. kBodyRows 1, 2, 4, 8 (one tile, SR rows; fp32
-// queries, or bf16 over bf16 K/V); kBodyQRows 1, 2, 4, 8 (bf16 over
-// int8/fp8); kBodyTiled 64 (fp32 only); kBodyMma 16 (one small tile) or
-// MMA_ROWS (bf16 only)
+// queries only); kBodyQRows 1, 2, 4, 8 (bf16 queries over any storage);
+// kBodyTiled 64 (fp32 only); kBodyMma 16 (one small tile) or MMA_ROWS
+// (bf16 only)
 template <typename T, typename S, int D, bool PAGED, bool MASKED>
 cudaError_t by_rows(const Args& a, int body, int rows, cudaStream_t stream) {
-  constexpr bool kNarrowBf16 =
-      std::is_same<T, bf16>::value && !std::is_same<S, bf16>::value;
-  if constexpr (kNarrowBf16) {
+  if constexpr (std::is_same<T, bf16>::value) {
     if (body == kBodyQRows) {
       if (rows == 1) return launch_qrows<S, D, 1, PAGED, MASKED>(a, stream);
       if (rows == 2) return launch_qrows<S, D, 2, PAGED, MASKED>(a, stream);

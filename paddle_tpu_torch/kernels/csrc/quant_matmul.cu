@@ -16,13 +16,24 @@
 // What bounds it, and what the design does about it:
 //   - small M (decode: one row per slot, M <= 16): weight bytes. Every
 //     weight byte is used M times, far below the ~295 operations per
-//     byte where the card stops being bound by memory. qmm_gemv_tc (bf16)
-//     streams the narrow rows once with 16-byte loads, four 64-column
-//     steps in flight per lane, and runs the products on the tensor cores
-//     with the weight rows as the A operand and x as the 8-column B
-//     operand, so the arithmetic costs nothing beside the loads; eight
-//     warps split K and meet in shared memory. fp32 x takes qmm_gemv,
-//     plain FMA against x staged in shared memory.
+//     byte where the card stops being bound by memory, so the kernel is
+//     as fast as it keeps the narrow weight streaming at the card's
+//     3.35 TB/s: about 30 KB of loads in flight on every SM from the
+//     first load to the last, every SM busy to the end, and few enough
+//     instructions a byte that the issue rate stays below the byte rate.
+//     qmm_gemv_stream (bf16) is one block of eight warps a SM; block b
+//     owns a contiguous run of weight rows in 8-row groups (the SMs'
+//     shares differ by at most 8 rows at every shape), in 16-row tiles
+//     whose K the warps split. Each warp keeps two rounds of four
+//     64-column steps of 16-byte weight and x loads in registers and
+//     issues the next round before it widens and multiplies this one,
+//     across tile boundaries too. The products run on the tensor cores
+//     (the weight rows the A operand of mma.m16n8k16, x its 8-column B
+//     operand) after widen2 (a byte permute, a mask and one bf16
+//     subtract or multiply a pair: no conversion instruction), so the
+//     arithmetic hides under the loads. A tile's warps meet in shared
+//     memory in a fixed order: no atomics and no second launch.
+//     fp32 x takes qmm_gemv, plain FMA against x staged in shared memory.
 //   - large M (a 256-token prefill chunk): operations, 2 x 256 per weight
 //     byte against the card's ~295 a byte in bf16. qmm_wg (bf16, M > 16)
 //     is built for the tensor cores' full rate: wgmma m64nTNk16 (TN 64,
@@ -460,138 +471,163 @@ __global__ void __launch_bounds__(256)
 // ===========================================================================
 // small M, bf16: the weight-streaming GEMV on the tensor cores
 // ===========================================================================
+//
+// out^T[N, M] = W[N, K] . x^T[K, M]: 16 weight rows (a tile) are the rows
+// of an mma.m16n8k16 A operand, the (up to 8) rows of x its 8 B columns,
+// so the products cost nothing beside the loads. A dot product may sum
+// its k terms in any order, so lane (g, t) loads 16 CONTIGUOUS bytes of
+// its two weight rows (g and g + 8 of the tile) and 16 contiguous bf16 of
+// x row g at column 64s + 16t of a 64-column step s, and the four mma
+// k-steps of that step take their fragments from those registers: virtual
+// k (2t, 2t+1, 2t+8, 2t+9) of k-step j is real 64s + 16t + 4j + (0, 1, 2,
+// 3), the same permutation for W and x. A byte widens to bf16 by widen2
+// (a byte permute, a mask and one bf16 subtract or multiply a pair).
+//
+// The work: one block of eight warps a SM (gridDim.x = min(SMs, N / 8)),
+// block b owning weight rows [8 (b G / B), 8 ((b + 1) G / B)) of the
+// G = ceil(N / 8) groups of 8 (the blocks' shares differ by at most 8 rows
+// at every shape) in 16-row tiles, the last maybe half full. A tile's K is
+// split in eight runs of `per` 64-column steps, one a warp. A warp walks
+// its (tile, round) sequence, GS_U steps a round, with two rounds of
+// weight and x loads in registers: the next round's loads are issued
+// before this round is widened and multiplied, across tile boundaries
+// too, so each SM keeps 32-64 KB of weight in flight from the first load
+// to the last. After a tile the warps' sums meet in shared memory, in warp
+// order, and one multiply by scale[n] ends each output: no atomics, the
+// same bits every run. x (a few tens of KB) is read through L1.
 
-// two narrow weight values (bytes i, i + 1 of word u) as a bf16 pair
-template <typename S>
-__device__ __forceinline__ uint32_t pair_bf16w(uint32_t u, int i) {
-  const S* v = reinterpret_cast<const S*>(&u);
-  const __nv_bfloat162 h = __floats2bfloat162_rn(to_f(v[i]), to_f(v[i + 1]));
-  return *reinterpret_cast<const uint32_t*>(&h);
+constexpr int GS_WARPS = 8;  // warps a block, one run of a tile's K each
+
+template <int MT>
+struct GemvStream {
+  static constexpr int U = MT == 1 ? 4 : 2;  // 64-column steps a round
+};
+
+// 16 weight bytes read once: not kept in L1 (x is), and L2 fetches the
+// 256-byte span around them, which the warp's next steps read
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 v;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
 }
 
-//
-// out^T[N, M] = W[N, K] . x^T[K, M]: weight rows are the 16 rows of an
-// mma.m16n8k16 A operand, the (up to 8) rows of x its 8 B columns, so the
-// products cost nothing and the kernel is left with moving the weight.
-// A dot product may sum its k terms in any order, so each lane loads 16
-// CONTIGUOUS bytes of its two weight rows (g and g + 8 of the tile) and 16
-// contiguous bf16 of x row g at column k + 16t, and the four mma k-steps of
-// a 64-column step take their fragments from those registers: virtual k
-// (2t, 2t+1, 2t+8, 2t+9) of step j is real k + 16t + 4j + (0, 1, 2, 3), the
-// same permutation for W and x. No shared memory is needed for x: it is a
-// few tens of KB, read through L1. The eight warps of a block share 32 rows
-// and split K eight ways (enough warps in flight to cover memory latency at
-// N = 4096); their partial sums meet in shared memory, in a fixed order,
-// where one multiply by scale[n] ends each output.
-
-constexpr int TG_WARPS = 8;     // warps per block, one K slice each
-constexpr int TG_TILES = 2;     // 16-row weight tiles per block
-constexpr int TG_ROWS = 16 * TG_TILES;
-constexpr int TG_UNROLL = 4;    // 64-column steps whose loads are in flight
-
-// MT n8 tiles of x rows: M <= 8 * MT
+// MT n8 tiles of x rows (M <= 8 * MT); per: a warp's 64-column steps of
+// a tile, rounds: its rounds of GS_U steps
 template <typename S, int MT>
-__global__ void __launch_bounds__(TG_WARPS * 32)
-    qmm_gemv_tc(const bf16* __restrict__ x, const S* __restrict__ w,
-                const float* __restrict__ scale, bf16* __restrict__ out,
-                int M, int N, int K) {
-  __shared__ float red[TG_WARPS][TG_TILES][MT][16][8];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+__global__ void __launch_bounds__(GS_WARPS * 32, 1)
+    qmm_gemv_stream(const bf16* __restrict__ x, const S* __restrict__ w,
+                    const float* __restrict__ scale, bf16* __restrict__ out,
+                    int M, int N, int K, int per, int rounds) {
+  constexpr int U = GemvStream<MT>::U;
+  __shared__ float red[2][GS_WARPS][MT][16][8];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * TG_ROWS;
-  const int steps = (K + 63) / 64;
-  const int per = (steps + TG_WARPS - 1) / TG_WARPS;
-  const int s_begin = warp * per;
-  const int s_end = min(steps, s_begin + per);
+  const int groups = (N + 7) >> 3;
+  const int q0 = (int)((long long)blockIdx.x * groups / gridDim.x);
+  const int q1 = (int)((long long)(blockIdx.x + 1) * groups / gridDim.x);
+  const int row0 = q0 * 8, row1 = min(q1 * 8, N);
+  const int total = (q1 - q0 + 1) / 2 * rounds;  // (tile, round) pairs
+  const int s_lo = warp * per;
+  const int s_hi = min((K + 63) >> 6, s_lo + per);
+  const uint32_t sel0 = widen_sel<S>(0), sel1 = widen_sel<S>(1);
 
-  float acc[TG_TILES][MT][4];
+  // round i: tile i / rounds, steps s_lo + U (i % rounds) on; nothing
+  // loads past the warp's run, K, the block's rows or M
+  auto load = [&](uint4(&wr)[U][2], uint4(&xr)[U][MT][2], int i) {
+    const int n0 = row0 + 16 * (i / rounds);
+    const int sb = s_lo + U * (i % rounds);
 #pragma unroll
-  for (int i = 0; i < TG_TILES; ++i)
+    for (int u = 0; u < U; ++u) {
+      const int k = (sb + u) * 64 + 16 * t;
+      const bool kin = i < total && sb + u < s_hi && k < K;  // K % 16 == 0
 #pragma unroll
-    for (int j = 0; j < MT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int s0 = s_begin; s0 < s_end; s0 += TG_UNROLL) {
-    uint4 wa[TG_UNROLL][TG_TILES][2];
-    uint4 xb[TG_UNROLL][MT][2];
-#pragma unroll
-    for (int u = 0; u < TG_UNROLL; ++u) {
-      const int k = (s0 + u) * 64 + 16 * t;
-      const bool kin = s0 + u < s_end && k < K;  // K % 16 == 0: whole chunks
-#pragma unroll
-      for (int i = 0; i < TG_TILES; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int n = n0 + 16 * i + g + 8 * h;
-          wa[u][i][h] = make_uint4(0u, 0u, 0u, 0u);
-          if (kin && n < N)
-            wa[u][i][h] = *reinterpret_cast<const uint4*>(w + (long long)n * K + k);
-        }
+      for (int h = 0; h < 2; ++h) {
+        const int n = n0 + g + 8 * h;
+        wr[u][h] = make_uint4(0u, 0u, 0u, 0u);
+        if (kin && n < row1) wr[u][h] = ld_stream(w + (long long)n * K + k);
+      }
 #pragma unroll
       for (int j = 0; j < MT; ++j) {
         const int m = g + 8 * j;
-        xb[u][j][0] = xb[u][j][1] = make_uint4(0u, 0u, 0u, 0u);
+        xr[u][j][0] = xr[u][j][1] = make_uint4(0u, 0u, 0u, 0u);
         if (kin && m < M) {
-          const uint4* p = reinterpret_cast<const uint4*>(x + (long long)m * K + k);
-          xb[u][j][0] = p[0];
-          xb[u][j][1] = p[1];
+          const uint4* p =
+              reinterpret_cast<const uint4*>(x + (long long)m * K + k);
+          xr[u][j][0] = __ldg(p);
+          xr[u][j][1] = __ldg(p + 1);
         }
       }
     }
+  };
+
+  float acc[MT][4];
 #pragma unroll
-    for (int u = 0; u < TG_UNROLL; ++u) {
+  for (int j = 0; j < MT; ++j)
 #pragma unroll
-      for (int st = 0; st < 4; ++st) {
-        uint32_t b[MT][2];
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  auto compute = [&](const uint4(&wr)[U][2], const uint4(&xr)[U][MT][2]) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const uint32_t* lo = reinterpret_cast<const uint32_t*>(&wr[u][0]);
+      const uint32_t* hi = reinterpret_cast<const uint32_t*>(&wr[u][1]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4];
+        a[0] = widen2<S>(lo[kk], sel0);
+        a[1] = widen2<S>(hi[kk], sel0);
+        a[2] = widen2<S>(lo[kk], sel1);
+        a[3] = widen2<S>(hi[kk], sel1);
 #pragma unroll
         for (int j = 0; j < MT; ++j) {
-          const uint32_t* xw = reinterpret_cast<const uint32_t*>(xb[u][j]);
-          b[j][0] = xw[2 * st];
-          b[j][1] = xw[2 * st + 1];
-        }
-#pragma unroll
-        for (int i = 0; i < TG_TILES; ++i) {
-          const uint32_t lo = reinterpret_cast<const uint32_t*>(&wa[u][i][0])[st];
-          const uint32_t hi = reinterpret_cast<const uint32_t*>(&wa[u][i][1])[st];
-          uint32_t a[4];
-          a[0] = pair_bf16w<S>(lo, 0);
-          a[1] = pair_bf16w<S>(hi, 0);
-          a[2] = pair_bf16w<S>(lo, 2);
-          a[3] = pair_bf16w<S>(hi, 2);
-#pragma unroll
-          for (int j = 0; j < MT; ++j) mma16816(acc[i][j], a, b[j]);
+          const uint32_t* xw = reinterpret_cast<const uint32_t*>(xr[u][j]);
+          mma16816(acc[j], a, xw + 2 * kk);
         }
       }
     }
-  }
+  };
 
-  // C layout: c0, c1 at (row g, cols 2t, 2t+1), c2, c3 at row g + 8;
-  // rows are weight rows n, columns rows m of x
-#pragma unroll
-  for (int i = 0; i < TG_TILES; ++i)
+  // after a tile's last round: C layout c0, c1 at (row g, cols 2t, 2t+1),
+  // c2, c3 at row g + 8; rows are weight rows, cols rows of x
+  auto flush = [&](int i) {
+    if (i % rounds != rounds - 1) return;
+    const int tile = i / rounds;
+    float(*rw)[16][8] = red[tile & 1][warp];
 #pragma unroll
     for (int j = 0; j < MT; ++j) {
-      red[warp][i][j][g][2 * t] = acc[i][j][0];
-      red[warp][i][j][g][2 * t + 1] = acc[i][j][1];
-      red[warp][i][j][g + 8][2 * t] = acc[i][j][2];
-      red[warp][i][j][g + 8][2 * t + 1] = acc[i][j][3];
-    }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TG_TILES * MT * 128;
-       idx += TG_WARPS * 32) {
-    const int c = idx & 7;
-    const int r = (idx >> 3) & 15;
-    const int j = (idx >> 7) % MT;
-    const int i = (idx >> 7) / MT;
-    const int n = n0 + 16 * i + r;
-    const int m = c + 8 * j;
-    if (n >= N || m >= M) continue;
-    float sum = 0.f;
+      rw[j][g][2 * t] = acc[j][0];
+      rw[j][g][2 * t + 1] = acc[j][1];
+      rw[j][g + 8][2 * t] = acc[j][2];
+      rw[j][g + 8][2 * t + 1] = acc[j][3];
 #pragma unroll
-    for (int wp = 0; wp < TG_WARPS; ++wp) sum += red[wp][i][j][r][c];
-    out[(long long)m * N + n] = __float2bfloat16(sum * scale[n]);
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    }
+    __syncthreads();  // red[tile & 1] full; red[!(tile & 1)] read already
+    for (int e = tid; e < MT * 128; e += GS_WARPS * 32) {
+      const int r = e & 15, c = (e >> 4) & 7, j = e >> 7;
+      const int n = row0 + 16 * tile + r, m = 8 * j + c;
+      if (n >= row1 || m >= M) continue;
+      float s = 0.f;
+#pragma unroll
+      for (int wp = 0; wp < GS_WARPS; ++wp) s += red[tile & 1][wp][j][r][c];
+      out[(long long)m * N + n] = __float2bfloat16(s * __ldg(scale + n));
+    }
+  };
+
+  uint4 wa[U][2], wb[U][2], xa[U][MT][2], xb[U][MT][2];
+  load(wa, xa, 0);
+  for (int i = 0; i < total; i += 2) {
+    load(wb, xb, i + 1);
+    compute(wa, xa);
+    flush(i);
+    if (i + 1 == total) break;
+    load(wa, xa, i + 2);
+    compute(wb, xb);
+    flush(i + 1);
   }
 }
 
@@ -683,21 +719,41 @@ cudaError_t launch_gemv(const void* x, const void* w, const float* scale,
   return cudaGetLastError();
 }
 
-template <typename S, int MT>
-cudaError_t launch_gemv_tc(const void* x, const void* w, const float* scale,
-                           void* out, int M, int N, int K, cudaStream_t st) {
-  qmm_gemv_tc<S, MT><<<(N + TG_ROWS - 1) / TG_ROWS, TG_WARPS * 32, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const S*>(w), scale,
-      static_cast<bf16*>(out), M, N, K);
-  return cudaGetLastError();
-}
-
 // The launch plan of quant_matmul.qmm_plan (body 1), checked against
 // what qmm_wg can run
 struct Plan {
   int body, tn, token_tiles, row_tiles, splits, per, stages, smem, items,
       grid;
 };
+
+// The GEMV's plan (quant_matmul.gemv_plan, body 0 in bf16) in Plan's
+// fields: tn the steps a round, token_tiles x's n8 tiles (MT), row_tiles
+// the 8-row groups, splits 1, per a warp's steps of a tile, stages its
+// rounds, smem 0, items a block's groups at most, grid the blocks (one a
+// SM); checked against what the body and the card run
+template <typename S, int MT>
+cudaError_t launch_gemv_stream(const void* x, const void* w,
+                               const float* scale, void* out, int M, int N,
+                               int K, const Plan& p, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  constexpr int U = GemvStream<MT>::U;
+  const int groups = (N + 7) / 8;
+  const int per = ((K + 63) / 64 + GS_WARPS - 1) / GS_WARPS;
+  const int grid = groups < sms ? groups : sms;
+  const bool ok = p.tn == U && p.token_tiles == MT && p.row_tiles == groups &&
+                  p.splits == 1 && p.per == per &&
+                  p.stages == (per + U - 1) / U && p.smem == 0 &&
+                  p.grid == grid && p.items == (groups + grid - 1) / grid;
+  if (!ok) return cudaErrorInvalidValue;
+  qmm_gemv_stream<S, MT><<<grid, GS_WARPS * 32, 0, st>>>(
+      static_cast<const bf16*>(x), static_cast<const S*>(w), scale,
+      static_cast<bf16*>(out), M, N, K, p.per, p.stages);
+  return cudaGetLastError();
+}
 
 // Raise qmm_wg<S, TN>'s dynamic shared-memory limit on device `dev`, once
 // per device (the attribute is per device; setting it costs host time on
@@ -788,9 +844,10 @@ cudaError_t launch_t(const void* x, const void* w, const float* scale,
   const int body = M <= SMALL_M ? 0 : sizeof(T) == 2 ? 1 : 2;
   if (p.body != body) return cudaErrorInvalidValue;
   if constexpr (sizeof(T) == 2) {
-    if (M <= 8) return launch_gemv_tc<S, 1>(x, w, scale, out, M, N, K, st);
+    if (M <= 8)
+      return launch_gemv_stream<S, 1>(x, w, scale, out, M, N, K, p, st);
     if (M <= SMALL_M)
-      return launch_gemv_tc<S, 2>(x, w, scale, out, M, N, K, st);
+      return launch_gemv_stream<S, 2>(x, w, scale, out, M, N, K, p, st);
     return launch_tc<S>(x, w, scale, out, part, M, N, K, p, st);
   } else {
     if (M <= 1) return launch_gemv<S, 1>(x, w, scale, out, M, N, K, st);
@@ -815,8 +872,9 @@ cudaError_t launch_t(const void* x, const void* w, const float* scale,
 // splits x M x N for a qmm_wg plan with splits > 1 (its contents are not
 // read before this launch writes them), else unused. The plan
 // (body, tn, token_tiles, row_tiles, splits, per, stages, smem, items,
-// grid) is quant_matmul.qmm_plan's (only body is read for the GEMV and
-// fp32 bodies); one this body cannot run is refused with
+// grid) is quant_matmul.qmm_plan's for the wgmma body and
+// quant_matmul.gemv_plan's for the bf16 GEMV (only body is read for the
+// fp32 bodies); one the body cannot run is refused with
 // cudaErrorInvalidValue. Returns the cudaError_t of the launch (0 =
 // accepted).
 extern "C" int paddle_quant_matmul(const void* x, const void* w,

@@ -36,8 +36,7 @@ Which body runs is a pure function of the bundle and the storage
 
 | q dtype | K/V | bundle | body |
 |---|---|---|---|
-| bf16 | bf16 | q_len 1 (the decode step), at most 8 rows | ``rows``: four warps stream the keys |
-| bf16 | int8, fp8 | q_len 1, at most 8 rows | ``qrows``: 16-byte rows, the dequant in integer and fma ops, the next keys in flight |
+| bf16 | any | q_len 1 (the decode step), at most 8 rows | ``qrows``: 16-byte rows, the narrow dequant in integer and fma ops, the next keys in flight |
 | bf16 | any | q_len >= 2 (chunks, verify bundles, draft levels); q_len 1 over more than 8 rows | ``mma``: bf16 tensor cores |
 | fp32 | any | at most 8 rows | ``rows`` |
 | fp32 | any | more rows | ``tiled``: fp32 FMA (the card-against-CPU parity path) |
@@ -122,6 +121,14 @@ MMA_ROWS = 64
 _FILL = {"rows": 4, "tiled": 2, "mma": 8, "qrows": 2}
 _MMA_PART_SHARE = 2
 
+# the qrows body over bf16 K/V (twice int8's bytes a key, so a split takes
+# twice as long) aims at the rows body's 4 blocks a SM: Llama-2-7B's decode
+# step keeps 8 splits (group 1, 2), group 4 takes 16 and group 8 32. On an
+# H100 (chip_smoke.py's kernel and split_sweep rows, PERF.md) 16 splits at
+# group 8 made K4's kernel row, whose longest row holds 2048 keys and most
+# others few, 22% slower than the rows body's 32.
+_QROWS_BF16_FILL = 4
+
 LAUNCHES = {"flash_decode_attention": 0, "paged_flash_decode_attention": 0,
             "flash_decode_attention_quant": 0,
             "paged_flash_decode_attention_quant": 0,
@@ -151,9 +158,7 @@ def bundle_body(q_len: int, group: int, dtype,
     (q_len x group)."""
     gq = q_len * group
     if dtype == torch.bfloat16:
-        if q_len == 1 and gq <= 8:
-            return "rows" if kv_format == "bf16" else "qrows"
-        return "mma"
+        return "qrows" if q_len == 1 and gq <= 8 else "mma"
     if dtype == torch.float32:
         return "rows" if gq <= 8 else "tiled"
     raise TypeError(f"no kernel body for {dtype} queries")
@@ -166,10 +171,11 @@ def launch_plan(q_len: int, group: int, dtype, B: int, KV: int,
     kv head), ``n_split`` and ``split_keys``. Splits tile [0, max_len)
     exactly in whole units of ``_SPLIT_UNIT[body]`` keys (the last split
     may run past max_len, none is empty). Every body aims at ``_FILL``
-    blocks per SM; the qrows body's splits hold at most
-    ``_QROWS_SPLIT_KEYS`` keys (the unit's multiple below); the mma body keeps its fp32 partials (which the merge
-    reads back) within 1 / ``_MMA_PART_SHARE`` of the bf16 K/V bytes it
-    streams (whatever the storage)."""
+    blocks per SM (the qrows body over bf16 K/V at ``_QROWS_BF16_FILL``);
+    the qrows body's splits hold at most ``_QROWS_SPLIT_KEYS`` keys (the
+    unit's multiple below); the mma body keeps its fp32 partials (which
+    the merge reads back) within 1 / ``_MMA_PART_SHARE`` of the bf16 K/V
+    bytes it streams (whatever the storage)."""
     body = bundle_body(q_len, group, dtype, kv_format)
     gq = q_len * group
     if body in ("rows", "qrows"):
@@ -188,7 +194,9 @@ def launch_plan(q_len: int, group: int, dtype, B: int, KV: int,
         want = max(1, min(_FILL[body] * sm_count // base, cap))
         per = -(-n_chunks // want)      # at most `want` splits
     else:
-        want = max(1, -(-_FILL[body] * sm_count // base))
+        fill = _QROWS_BF16_FILL if body == "qrows" and kv_format == "bf16" \
+            else _FILL[body]
+        want = max(1, -(-fill * sm_count // base))
         if body == "qrows":
             want = max(want, -(-max_len // _QROWS_SPLIT_KEYS))
         per = max(1, n_chunks // want)

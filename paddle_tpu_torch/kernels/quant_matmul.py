@@ -12,8 +12,9 @@ The wrapper takes its plain version (``quant_matmul_ref``) only for
 tensors on the CPU. For CUDA tensors it launches the hand-written kernel
 of ``csrc/quant_matmul.cu`` or raises; launches are counted in
 ``LAUNCHES`` and, by kernel body (``qmm_body``), in ``BODY_LAUNCHES``:
-``gemv`` (M <= 16), ``wgmma`` (bf16, M > 16; its launch geometry is
-``qmm_plan``) and ``simt`` (fp32, M > 16). ``quant_matmul_dispatch``
+``gemv`` (M <= 16; in bf16 its launch geometry is ``gemv_plan``),
+``wgmma`` (bf16, M > 16; its launch geometry is ``qmm_plan``) and
+``simt`` (fp32, M > 16). ``quant_matmul_dispatch``
 keeps the JAX package's gates (dtype, grad mode) with hits counted by
 format and fallbacks by reason.
 """
@@ -29,7 +30,8 @@ from ..quantization.intx import format_of_dtype
 from ._build import load_library
 
 __all__ = ["quant_matmul", "quant_matmul_ref", "quant_matmul_dispatch",
-           "qmm_body", "qmm_plan", "qmm_items", "LAUNCHES", "BODY_LAUNCHES",
+           "qmm_body", "qmm_plan", "qmm_items", "gemv_plan", "gemv_items",
+           "LAUNCHES", "BODY_LAUNCHES",
            "DISPATCH_HITS", "DISPATCH_FALLBACKS", "reset_counters"]
 
 LAUNCHES = {"quant_matmul": 0}
@@ -114,7 +116,56 @@ def qmm_plan(M: int, N: int, K: int, sms: int) -> dict:
     return dict(zip(_PLAN_KEYS, _plan_args(M, N, K, sms)))
 
 
-_NO_PLAN = (0, 0, 0, 1, 0, 0, 0, 0, 0)   # the GEMV and fp32 bodies
+# the bf16 GEMV (body "gemv" in bf16, csrc/quant_matmul.cu qmm_gemv_stream)
+GEMV_WARPS = 8         # warps a block, each a run of a tile's k steps
+_GEMV_KEYS = ("step_round", "x_tiles", "groups", "splits", "per", "rounds",
+              "smem", "block_groups", "grid")
+
+
+@functools.lru_cache(maxsize=4096)
+def _gemv_args(M: int, N: int, K: int, sms: int) -> tuple:
+    # gemv_plan's values in _GEMV_KEYS order, the C entry's argument order
+    mt = -(-M // 8)
+    u = 4 if mt == 1 else 2
+    per = -(-(-(-K // KSTEP)) // GEMV_WARPS)
+    groups = -(-N // 8)
+    grid = min(sms, groups)
+    return (u, mt, groups, 1, per, -(-per // u), 0, -(-groups // grid), grid)
+
+
+def gemv_plan(M: int, N: int, K: int, sms: int) -> dict:
+    """Launch geometry of the bf16 GEMV (M <= 16) for x [M, K] against
+    w [N, K] on a card of ``sms`` SMs: one block of ``GEMV_WARPS`` warps
+    a SM (``grid``); block b owns weight rows [8 (b G // grid), 8 ((b +
+    1) G // grid)) of the G = ``groups`` 8-row groups, in 16-row tiles
+    (the last maybe half full), so the blocks' rows differ by at most 8.
+    A tile's K is split in runs of ``per`` 64-column steps, one a warp,
+    walked in ``rounds`` rounds of ``step_round`` steps (4 at M <= 8, 2
+    above: two rounds of loads fit the registers)."""
+    return dict(zip(_GEMV_KEYS, _gemv_args(M, N, K, sms)))
+
+
+def gemv_items(plan: dict, N: int, K: int):
+    """The GEMV plan's work in launch order, as its warps walk it:
+    (block, warp, rows n0..n1, k0..k1) for every tile of the block and
+    the warp's run of k steps, clipped at the block's rows, N and K
+    (empty runs left out)."""
+    per, grid, groups = plan["per"], plan["grid"], plan["groups"]
+    steps = -(-K // KSTEP)
+    out = []
+    for blk in range(grid):
+        r0 = blk * groups // grid * 8
+        r1 = min((blk + 1) * groups // grid * 8, N)
+        for n0 in range(r0, r1, 16):
+            for warp in range(GEMV_WARPS):
+                s0, s1 = warp * per, min(steps, (warp + 1) * per)
+                if s0 < s1:
+                    out.append((blk, warp, n0, min(n0 + 16, r1),
+                                s0 * KSTEP, min(s1 * KSTEP, K)))
+    return out
+
+
+_NO_PLAN = (0, 0, 0, 1, 0, 0, 0, 0, 0)   # the fp32 bodies
 
 
 def qmm_items(plan: dict, M: int, N: int, K: int):
@@ -227,8 +278,12 @@ def quant_matmul(x, qweight, scale):
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M:
         body = qmm_body(M, x.dtype)
-        plan = _plan_args(M, N, K, _sm_count(x.device)) \
-            if body == "wgmma" else _NO_PLAN
+        if body == "wgmma":
+            plan = _plan_args(M, N, K, _sm_count(x.device))
+        elif x.dtype == torch.bfloat16:
+            plan = _gemv_args(M, N, K, _sm_count(x.device))
+        else:
+            plan = _NO_PLAN
         stream = torch.cuda.current_stream(x.device).cuda_stream
         part = _split_scratch(x.device, stream, plan[3] * M * N) \
             if plan[3] > 1 else None   # split K: the f32 partials

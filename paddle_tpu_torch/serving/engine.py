@@ -403,11 +403,20 @@ class ServingEngine:
                 f"exceeds the slot KV capacity max_len={self.config.max_len}")
         bs = self.config.block_size
         worst = -(-(L + params.max_new_tokens - 1) // bs)
-        if worst > self.pool.usable_blocks:
+        # With prefix caching, a write into a cached partial block forks
+        # it while the slot still holds every other block: the prompt's
+        # own registered tail at the first decode write, or a matched
+        # partial tail during a (resumed) prefill. The cache keeps the
+        # old block until the fork is done, so a slot may need one block
+        # beyond its span; without it, reclaim frees nothing and the
+        # request preempts itself onto the same cached blocks forever.
+        need = worst + (self.prefix_cache is not None)
+        if need > self.pool.usable_blocks:
             raise ValueError(
                 f"prompt ({L}) + max_new_tokens ({params.max_new_tokens}) "
-                f"needs up to {worst} KV blocks of {bs} tokens, but the pool "
-                f"only has {self.pool.usable_blocks} usable blocks")
+                f"needs up to {need} KV blocks of {bs} tokens (a copy-on-"
+                f"write fork included when prefix caching is on), but the "
+                f"pool only has {self.pool.usable_blocks} usable blocks")
         req = Request(prompt, params, deadline_s=deadline_s, on_token=on_token)
         self.scheduler.submit(req)
         return req

@@ -182,21 +182,21 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 
 @pytest.mark.parametrize("q_len,group,dtype,body", [
-    (1, 1, BF16, "rows"), (1, 4, BF16, "rows"), (1, 8, BF16, "rows"),
-    (1, 16, BF16, "mma"),           # more rows than the rows body holds
+    (1, 1, BF16, "qrows"), (1, 4, BF16, "qrows"), (1, 8, BF16, "qrows"),
+    (1, 16, BF16, "mma"),           # more rows than the qrows body holds
     (2, 1, BF16, "mma"), (5, 1, BF16, "mma"), (7, 4, BF16, "mma"),
     (29, 1, BF16, "mma"), (256, 1, BF16, "mma"), (256, 8, BF16, "mma"),
     (1, 1, F32, "rows"), (8, 1, F32, "rows"), (2, 4, F32, "rows"),
     (9, 1, F32, "tiled"), (29, 1, F32, "tiled"), (256, 4, F32, "tiled")])
 def test_bundle_body_routing(q_len, group, dtype, body):
-    """The decode step stays on the rows body, every bf16 bundle of
-    q_len >= 2 goes to the tensor cores, and fp32 keeps the SIMT
-    bodies."""
+    """The bf16 decode step takes the qrows body over bf16 K/V too, every
+    bf16 bundle of q_len >= 2 goes to the tensor cores, and fp32 keeps
+    the SIMT bodies."""
     assert tda.bundle_body(q_len, group, dtype) == body
     assert tda.bundle_body(q_len, group, dtype, "bf16") == body
 
 
-@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8", "bf16"])
 @pytest.mark.parametrize("q_len,group,dtype,body", [
     (1, 1, BF16, "qrows"), (1, 2, BF16, "qrows"), (1, 4, BF16, "qrows"),
     (1, 8, BF16, "qrows"), (1, 16, BF16, "mma"), (2, 1, BF16, "mma"),
@@ -204,9 +204,10 @@ def test_bundle_body_routing(q_len, group, dtype, body):
     (8, 1, F32, "rows"), (9, 1, F32, "tiled")])
 def test_bundle_body_routing_over_narrow_storage(q_len, group, dtype, body,
                                                  fmt):
-    """bf16 decode steps (q_len 1, at most 8 rows) over int8/fp8 K/V take
-    the qrows body; every other bundle the body it takes over bf16 K/V
-    (fp32 queries keep the SIMT bodies, the card-against-CPU path)."""
+    """bf16 decode steps (q_len 1, at most 8 rows) over int8, fp8 and
+    bf16 K/V take the qrows body; every other bundle the body it takes
+    over bf16 K/V (fp32 queries keep the SIMT bodies, the card-against-CPU
+    path)."""
     assert tda.bundle_body(q_len, group, dtype, fmt) == body
 
 
@@ -250,22 +251,20 @@ def test_launch_plan_splits_tile_the_key_range(case):
 
 def test_launch_plan_at_the_serving_shapes():
     """Llama-2-7B's shapes on 132 SMs: the decode step keeps its split
-    (four 512-key splits on the rows body; eight of 256 keys on the qrows
-    body over narrow K/V); a 256-token chunk takes four
-    64-row tiles on the tensor cores in four splits (its partials half
-    of its K/V), the 8-row verify bundles four splits of one tile; on a
-    card with a quarter of the SMs a bundle runs in one."""
-    decode = tda.launch_plan(1, 1, BF16, 8, 32, 2048, 132)
-    assert decode == {"body": "rows", "rows": 1, "tiles": 1, "n_split": 4,
-                      "split_keys": 512}
-    for fmt in ("int8", "fp8"):
+    (eight of 256 keys on the qrows body, over bf16 and narrow K/V; bf16
+    K/V splits groups 4 and 8 twice as finely); a 256-token chunk takes
+    four 64-row tiles on the tensor cores in four splits (its partials
+    half of its K/V), the 8-row verify bundles four splits of one tile;
+    on a card with a quarter of the SMs a bundle runs in one."""
+    for fmt in ("int8", "fp8", "bf16"):
         assert tda.launch_plan(1, 1, BF16, 8, 32, 2048, 132, fmt) == {
             "body": "qrows", "rows": 1, "tiles": 1, "n_split": 8,
             "split_keys": 256}
         # the split counts of the groups the body holds (PERF.md)
         assert [tda.launch_plan(1, g, BF16, 8, 32 // g, 2048, 132, fmt)[k]
                 for g in (2, 4, 8) for k in ("rows", "n_split")] \
-            == [2, 8, 4, 8, 8, 16]
+            == ([2, 8, 4, 16, 8, 32] if fmt == "bf16"
+                else [2, 8, 4, 8, 8, 16])
         # the engine's bundles over narrow pools stay on the tensor cores
         assert tda.launch_plan(256, 1, BF16, 1, 32, 2048, 132, fmt) \
             == tda.launch_plan(256, 1, BF16, 1, 32, 2048, 132)
@@ -346,11 +345,11 @@ NARROW_PLAN_CASES = [(1, 1, 8, 32, 2048), (1, 4, 8, 8, 2048),
 
 @pytest.mark.parametrize("case", NARROW_PLAN_CASES)
 def test_launch_plan_splits_narrow_decode_steps(case):
-    """The qrows body's splits tile [0, max_len) in whole 64-key units
-    (four 16-key pages) of at most 256 keys, none empty; its row tile
-    holds the group."""
+    """The qrows body's splits (over int8, fp8 and bf16 K/V) tile [0,
+    max_len) in whole 64-key units (four 16-key pages) of at most 256
+    keys, none empty; its row tile holds the group."""
     q_len, group, B, KV, max_len = case
-    for fmt in ("int8", "fp8"):
+    for fmt in ("int8", "fp8", "bf16"):
         p = tda.launch_plan(q_len, group, BF16, B, KV, max_len, 132, fmt)
         assert p["body"] == "qrows" and p["split_keys"] % 64 == 0
         assert p["split_keys"] <= tda._QROWS_SPLIT_KEYS

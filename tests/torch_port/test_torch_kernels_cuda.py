@@ -491,27 +491,62 @@ def test_quant_matmul_wgmma_body_matches_plain(M, N, K, fmt):
                                atol=ATOL[torch.bfloat16], rtol=0)
 
 
+# Llama-2-7B's four linear shapes, N past a 16-row unit with K past a
+# 64-column step, and one unit of one partial step
+GEMV_SHAPES = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096),
+               (4100, 4112), (33, 16)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt", ["int8", "fp8"])
-def test_quant_matmul_widens_every_byte_like_torch(fmt):
+@pytest.mark.parametrize("M", [1, 2, 8, 9, 16])
+@pytest.mark.parametrize("N,K", GEMV_SHAPES)
+def test_quant_matmul_gemv_body_matches_plain(N, K, M, fmt):
+    """K9's bf16 GEMV (M <= 16: one and two n8 tiles of x, partly
+    filled) on its cluster plan, against the plain version; two launches
+    are bit-equal (warps and ranks sum in a fixed order)."""
+    from paddle_tpu_torch.kernels import quant_matmul as tqm
+
+    require_cuda()
+    rng = np.random.RandomState(M + N + K)
+    x, w, scale = _qmm_case(rng, M, N, K, fmt)
+    tqm.reset_counters()
+    got = tqm.quant_matmul(x, w, scale)
+    again = tqm.quant_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    assert dict(tqm.BODY_LAUNCHES) == {"quant_matmul/gemv": 2}
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    want = tqm.quant_matmul_ref(x, w, scale)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("M,body", [(17, "wgmma"), (8, "gemv")],
+                         ids=["wgmma", "gemv"])
+def test_quant_matmul_widens_every_byte_like_torch(M, body, fmt):
     """Every int8 byte and every non-NaN e4m3 byte through the wgmma
-    body: with x a one-hot row and a unit scale, out[m, n] is weight row
-    n's first byte widened, equal to torch's .to(torch.bfloat16) (a
-    negative zero comes back as +0: the sum adds +0 products)."""
+    body and the GEMV: with x a one-hot row and a unit scale, out[m, n]
+    is weight row n's first byte widened, equal to torch's
+    .to(torch.bfloat16) (a negative zero comes back as +0: the sum adds
+    +0 products)."""
     from paddle_tpu_torch.kernels import quant_matmul as tqm
 
     require_cuda()
     dtype = torch.int8 if fmt == "int8" else torch.float8_e4m3fn
     byte = torch.arange(256, dtype=torch.uint8)
     w = byte[:, None].repeat(1, 64).view(dtype).cuda().contiguous()
-    x = torch.zeros(17, 64, dtype=torch.bfloat16, device="cuda")
+    x = torch.zeros(M, 64, dtype=torch.bfloat16, device="cuda")
     x[:, 0] = 1
+    tqm.reset_counters()
     got = tqm.quant_matmul(x, w, torch.ones(256, device="cuda"))
+    assert dict(tqm.BODY_LAUNCHES) == {f"quant_matmul/{body}": 1}
     want = w[:, 0].to(torch.bfloat16)
     keep = byte.cuda() & 0x7F != 0x7F if fmt == "fp8" \
         else torch.ones(256, dtype=torch.bool, device="cuda")
     assert torch.equal(got[:, keep].float(),
-                       want[keep].float()[None].expand(17, -1))
+                       want[keep].float()[None].expand(M, -1))
 
 
 def _tree_mask(factors, B):
@@ -852,24 +887,31 @@ def test_mma_causal_mask_is_bitwise_default(q_len, group, fmt):
 # flash_decode_qrows: the bf16 decode step over int8/fp8 K/V (K5, K7)
 # ---------------------------------------------------------------------------
 
+def _kv(rng, shape, fmt):
+    """A cache or pool of ``shape`` in bf16 (scales None) or quantized
+    int8/fp8 with its scales."""
+    if fmt == "bf16":
+        return _cuda(rng, shape, torch.bfloat16), None
+    return _quantized(_cuda(rng, shape, torch.float32), fmt)
+
+
 def _qrows_case(rng, lens, group, d, fmt, paged, KV=2, nb=40, bs=16):
     """A decode step (q_len 1) of len(lens) rows whose caches hold
-    ``lens`` tokens, over a contiguous int8/fp8 cache or a paged pool.
-    The pool's table points every unused column at block 0 and row 1's
-    first column at block 0 too (a real block, shared by no other row)."""
+    ``lens`` tokens, over a contiguous bf16/int8/fp8 cache or a paged
+    pool. The pool's table points every unused column at block 0 and row
+    1's first column at block 0 too (a real block, shared by no other
+    row)."""
     B, max_len = len(lens), nb * bs
     q = _cuda(rng, (B, 1, KV * group, d), torch.bfloat16)
     pos = torch.tensor([n - 1 for n in lens], dtype=torch.int32,
                        device="cuda")
     if not paged:
-        k, ks = _quantized(_cuda(rng, (B, max_len, KV, d), torch.float32),
-                           fmt)
-        v, vs = _quantized(_cuda(rng, (B, max_len, KV, d), torch.float32),
-                           fmt)
+        k, ks = _kv(rng, (B, max_len, KV, d), fmt)
+        v, vs = _kv(rng, (B, max_len, KV, d), fmt)
         return q, k, v, ks, vs, None, pos
     N = B * nb + 1
-    k, ks = _quantized(_cuda(rng, (N, bs, KV, d), torch.float32), fmt)
-    v, vs = _quantized(_cuda(rng, (N, bs, KV, d), torch.float32), fmt)
+    k, ks = _kv(rng, (N, bs, KV, d), fmt)
+    v, vs = _kv(rng, (N, bs, KV, d), fmt)
     bt_np = (rng.permutation(N - 1)[:B * nb] + 1).reshape(B, nb)
     for i, n in enumerate(lens):
         bt_np[i, -(-n // bs):] = 0
@@ -882,12 +924,13 @@ def _qrows_run(q, k, v, ks, vs, bt, pos, **kw):
     """The kernel (BODY_LAUNCHES counted from zero) and the plain
     version."""
     tda.reset_counters()
+    sfx = "" if ks is None else "_quant"
     if bt is None:
         got = tda.flash_decode_attention(q, k, v, pos, k_scale=ks,
                                          v_scale=vs)
         want = tda.flash_decode_attention_ref(q, k, v, pos, k_scale=ks,
                                               v_scale=vs)
-        name = "flash_decode_attention_quant"
+        name = "flash_decode_attention" + sfx
     else:
         got = tda.paged_flash_decode_attention(q, k, v, bt, pos, k_scale=ks,
                                                v_scale=vs, **kw)
@@ -895,21 +938,22 @@ def _qrows_run(q, k, v, ks, vs, bt, pos, **kw):
                                                     k_scale=ks, v_scale=vs,
                                                     **kw)
         name = "paged_flash_decode_attention" + (
-            "_tree" if kw else "") + "_quant"
+            "_tree" if kw else "") + sfx
     torch.cuda.synchronize()
     assert dict(tda.BODY_LAUNCHES) == {f"{name}/qrows": 1}
     return got, want
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8", "bf16"])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
 @pytest.mark.parametrize("paged,bs", [(False, 16), (True, 16), (True, 1),
                                       (True, 12), (True, 24)],
                          ids=["K5", "K7", "K7-bs1", "K7-bs12", "K7-bs24"])
 def test_qrows_body_matches_plain(paged, bs, group, d, fmt):
-    """The decode step over int8/fp8 K/V at every group the body holds:
+    """The decode step over int8/fp8 K/V (K5, K7) and bf16 K/V (K4, K6
+    under the same ids) at every group the body holds:
     rows of 1, 15, 16, 17 keys, a split boundary -1, 0, +1 (the plan's
     split at this shape) and max_len, against the plain version. K7 also
     over pages of 1, 12 and 24 tokens (the body finds a key's page by a
@@ -931,7 +975,7 @@ def test_qrows_body_matches_plain(paged, bs, group, d, fmt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8", "bf16"])
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("paged", [False, True], ids=["K5", "K7"])
 def test_qrows_body_at_the_serving_shape(paged, group, fmt):
@@ -1014,7 +1058,7 @@ def test_qrows_one_key_is_the_dequantized_row(paged, fmt, group, scales):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8", "bf16"])
 @pytest.mark.parametrize("group", [1, 4, 8])
 def test_qrows_masked_decode_step(group, fmt):
     """A q_len 1 bundle under an ancestor mask (a draft tree's root level)
@@ -1030,6 +1074,31 @@ def test_qrows_masked_decode_step(group, fmt):
     plain, _ = _qrows_run(*case)
     assert torch.equal(got, plain)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("paged,bs", [(False, 16), (True, 16), (True, 12)],
+                         ids=["K4", "K6", "K6-bs12"])
+def test_qrows_bf16_one_key_and_dead_rows(paged, bs, group):
+    """The bf16 decode step where a row sees one key (p = 1, l = 1: the
+    output is that key's V row, bit for bit), where a row is empty (no
+    key: zeros) and, paged, where a dead slot's table is all zeros (it
+    reads block 0 and agrees with the plain version)."""
+    require_cuda()
+    rng = np.random.RandomState(1200 + group + paged + bs)
+    KV, d, nb = 2, 128, 240 // bs
+    q, k, v, ks, vs, bt, pos = _qrows_case(rng, [1, 1, 1, 1, 9, 200, 0],
+                                           group, d, "bf16", paged, KV, nb,
+                                           bs)
+    if paged:
+        bt[5] = 0
+    got, want = _qrows_run(q, k, v, ks, vs, bt, pos)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+    first = v[bt[:4, 0].long(), 0] if paged else v[:4, 0]   # [4, KV, d]
+    assert torch.equal(got[:4, 0],
+                       first.repeat_interleave(group, dim=1))
+    assert not got[6].any()
 
 
 _DIV_CHECK = r"""

@@ -150,3 +150,78 @@ def test_widening_is_bit_equal_to_torch(fmt):
         got, want = got[keep], want[keep]
         assert keep.sum() == 254
     np.testing.assert_array_equal(got, want)
+
+
+# the GEMV (bf16, M <= 16): Llama-2-7B's shapes, ragged N and K, one
+# group of one partial step, fewer groups than SMs, a long K
+GEMV_CASES = LLAMA2_7B + [(4100, 4112), (8, 16), (1000, 1040),
+                          (130, 28672)]
+
+
+@pytest.mark.parametrize("M", (1, 8, 9, 16))
+@pytest.mark.parametrize("N,K", GEMV_CASES)
+def test_gemv_plan_covers_every_row_and_k_step_once(M, N, K):
+    """The GEMV's plan: one block a SM at most; every weight row belongs
+    to one block (blocks differ by at most one 8-row group) and every
+    16-row tile's warps' runs of k steps cover [0, K) exactly once, in
+    warp order."""
+    plan = qm.gemv_plan(M, N, K, SMS)
+    assert plan["x_tiles"] == -(-M // 8) and plan["splits"] == 1
+    assert plan["step_round"] == (4 if M <= 8 else 2)
+    assert plan["grid"] == min(SMS, plan["groups"]) and plan["smem"] == 0
+    steps = -(-K // qm.KSTEP)
+    assert (plan["per"] - 1) * qm.GEMV_WARPS < steps \
+        <= plan["per"] * qm.GEMV_WARPS
+    assert plan["rounds"] * plan["step_round"] >= plan["per"]
+    runs, rows = {}, {}
+    for blk, warp, n0, n1, k0, k1 in qm.gemv_items(plan, N, K):
+        assert n0 < n1 <= n0 + 16 and k0 < k1
+        assert k0 % qm.KSTEP == 0 and (k1 % qm.KSTEP == 0 or k1 == K)
+        assert k1 - k0 <= plan["per"] * qm.KSTEP
+        runs.setdefault((n0, n1), []).append((warp, k0, k1))
+        rows.setdefault(blk, set()).update(range(n0, n1))
+    covered = sorted(r for rs in rows.values() for r in rs)
+    assert covered == list(range(N))
+    sizes = [len(r) for r in rows.values()]
+    assert max(sizes) - min(sizes) <= 8
+    assert max(sizes) <= plan["block_groups"] * 8
+    for r in runs.values():
+        ks = [(k0, k1) for _, k0, k1 in sorted(r)]
+        assert ks[0][0] == 0 and ks[-1][1] == K
+        assert all(a[1] == b[0] for a, b in zip(ks, ks[1:]))
+
+
+def _gemv_mirror(x, w, scale, plan):
+    """The GEMV's sums in its order: each warp's run of k steps, the
+    warps of a tile in order; then the scale and the cast."""
+    K = x.shape[1]
+    xf, wf = x.float(), w.to(x.dtype).float()
+    acc = torch.zeros(x.shape[0], w.shape[0])
+    span = plan["per"] * qm.KSTEP
+    for warp in range(qm.GEMV_WARPS):
+        k0, k1 = min(K, warp * span), min(K, (warp + 1) * span)
+        acc = acc + xf[:, k0:k1] @ wf[:, k0:k1].t()
+    return acc * scale, (acc * scale).to(x.dtype)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("M,N,K", [(8, 130, 1040), (16, 33, 4112),
+                                   (1, 64, 30000)])
+def test_gemv_reduction_equals_the_plain_version(fmt, M, N, K):
+    rng = np.random.RandomState(M + N + K)
+    x = torch.from_numpy(rng.randn(M, K).astype(np.float32) * K ** -0.5) \
+        .to(torch.bfloat16)
+    if fmt == "int8":
+        w = torch.from_numpy(rng.randint(-127, 128, (N, K)).astype(np.int8))
+    else:
+        w = torch.from_numpy(rng.randn(N, K).astype(np.float32) * 50) \
+            .to(torch.float8_e4m3fn)
+    scale = torch.from_numpy(rng.rand(N).astype(np.float32) / 64 + 1e-3)
+    plan = qm.gemv_plan(M, N, K, SMS)
+    f32, out = _gemv_mirror(x, w, scale, plan)
+    want = torch.matmul(x.float(), w.to(x.dtype).float().t()) * scale
+    torch.testing.assert_close(f32, want, rtol=1e-5,
+                               atol=1e-6 * want.abs().max().item())
+    ref = qm.quant_matmul_ref(x, w, scale)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7,
+                               atol=1e-5 * want.abs().max().item())

@@ -154,3 +154,32 @@ def test_prompt_ending_in_the_last_block_completes_at_the_default_pool():
     assert jreq.status == "completed"
     ref = tm.generate(prompt[None], max_new_tokens=6)[0, 56:].tolist()
     assert list(req.output_tokens) == list(jreq.output_tokens) == ref
+
+
+@pytest.mark.parametrize("num_blocks", [5, 6])
+def test_explicit_pool_without_room_for_the_fork_refuses(num_blocks):
+    """C5: an explicit pool of 5 blocks (4 usable) spans the 56-token
+    prompt and its 6 new tokens, but not the fork of the prompt's cached
+    partial tail. ``submit`` refuses it (before, the request preempted
+    itself onto the same cached blocks every step). One more block and
+    it completes with the JAX engine's tokens (the JAX engine livelocks
+    at 5)."""
+    jm, tm, cfg = tiny_pair(max_position_embeddings=128)
+    prompt = np.random.RandomState(5).randint(1, cfg.vocab_size, 56)
+    kw = dict(max_slots=1, max_len=64, block_size=16, prefill_chunk=16,
+              num_blocks=num_blocks)
+    eng = tserving.ServingEngine(tm, device="cpu", **kw)
+    if num_blocks == 5:
+        with pytest.raises(ValueError, match="fork"):
+            eng.submit(prompt, max_new_tokens=6)
+        assert eng.run_until_idle(max_steps=50) == 0
+        return
+    req = eng.submit(prompt, max_new_tokens=6)
+    steps = eng.run_until_idle(max_steps=50)
+    assert req.status == "completed" and steps < 50
+    assert eng._preempt_count == 0
+    jeng = jserving.ServingEngine(jm, **kw)
+    jreq = jeng.submit(prompt, max_new_tokens=6)
+    jeng.run_until_idle(max_steps=50)
+    assert jreq.status == "completed"
+    assert list(req.output_tokens) == list(jreq.output_tokens)

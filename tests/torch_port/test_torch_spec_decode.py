@@ -276,3 +276,32 @@ def test_scheduler_counts_spec_opt_outs(pair):
     assert eng.stats()["spec"]["queue_spec_opted_out"] == 0
     plain = tserving.ServingEngine(tm, device="cpu", max_slots=1)
     assert plain.stats()["spec"] == {"enabled": False}
+
+
+@pytest.mark.parametrize("num_blocks", [9, 10])
+def test_engine_chain_pool_without_room_for_the_fork(pair, num_blocks):
+    """C5 on the chain lane over int8 pools: 1 slot, blocks of 8, a
+    60-token prompt whose cached partial tail the first bundle forks.
+    Nine blocks (8 usable) span the request but not the fork: ``submit``
+    refuses it (before, 2999 preemptions in 3000 steps). With ten it
+    completes in bounded steps with the JAX engine's tokens and plain
+    int8 greedy decode's."""
+    jm, jd, tm, td, cfg = pair
+    prompt = _prompts(cfg, (60,), SEED + 11)[0]
+    kw = dict(max_slots=1, max_len=64, block_size=8, prefill_chunk=16,
+              kv_format="int8", spec_k=4, num_blocks=num_blocks)
+    eng = tserving.ServingEngine(tm, device="cpu", draft_model=td, **kw)
+    if num_blocks == 9:
+        with pytest.raises(ValueError, match="fork"):
+            eng.submit(prompt, max_new_tokens=4)
+        return
+    req = eng.submit(prompt, max_new_tokens=4)
+    steps = eng.run_until_idle(max_steps=40)
+    assert req.status == "completed" and steps < 40
+    assert eng._preempt_count == 0
+    jeng = jserving.ServingEngine(jm, draft_model=jd, **kw)
+    jreq = jeng.submit(prompt, max_new_tokens=4)
+    jeng.run_until_idle(max_steps=40)
+    assert jreq.status == "completed"
+    assert list(req.output_tokens) == list(jreq.output_tokens) \
+        == _plain(tm, prompt, 4, kv_format="int8")
