@@ -87,6 +87,17 @@ Phases, each printing JSON lines (and failing loudly on any check):
    decode iteration holds them and as the kernel rows draw them) under 1
    to 32 (each output held to the plain version),
    beside the count ``launch_plan`` picks.
+   ``sample`` (no model): the threefry key chain and the samplers on
+   the card against the same code on the CPU: Random123's three
+   threefry2x32_20 known-answer vectors; 64-link ``split`` chains with a
+   ``fold_in`` per link from seeds 0, 7 and 2^31 - 1 (bit-equal);
+   uniform and Gumbel draws over [8, 32000] in fp32 and bf16 (bits
+   equal, Gumbel within 2 ulp of max(|g|, 1)); ``select_tokens`` over
+   temperature 0.7 / 1.0 / 1.3 x top_k 0 / 1 / 40 / 256 / 257 / 32000 x
+   top_p 1.0 / 0.9 / 0.5 with greedy rows mixed in, on integer logits
+   tied across the 256th value, and plain
+   ``generate``'s static selector, on fp32 and bf16 logits: every token
+   that differs is counted with its cause and must be a near tie.
 5. ``serve``: Llama-2-7B at full width and depth, bf16, seeded random
    N(0, 0.02) weights made on the card, served by the paged engine
    (8 slots, max_len 2048, 16-token blocks, 256-token prefill chunks):
@@ -108,6 +119,21 @@ Phases, each printing JSON lines (and failing loudly on any check):
    ``profile``: wall and device time of a prefill and a decode
    iteration of the bf16 engine, and the kernels that take the most
    (``flash_decode_qrows`` must be among the decode iteration's).
+   ``serve_sample``: the same traffic with sampling parameters by
+   request (greedy; temperature 0.8, top_k 40; top_p 0.9; temperature
+   1.2, top_k 12, top_p 0.95; seed 100 + index) through the default
+   engine and one at 60% of the blocks (must preempt), with the checks
+   of ``serve``; tokens/s beside the greedy engine's; the teacher-forced
+   check runs the sampler on the plain forward's logits with each
+   token's subkey (reported in bf16; on the oversubscribed engine only
+   for the requests whose tokens differ from the default's). In fp32 (after the greedy fp32
+   runs) it is asserted, and so are the preemption replay (the
+   oversubscribed engine's tokens equal the default's) and ``generate``
+   at B = 1 equal to the engine on two sampled requests, a divergence
+   allowed only at a near tie (gap at most 0.1, counted). A sampled
+   ``profile`` line: the same eight prompts again on the profile's
+   engine, every slot sampling (top_p 0.9), its decode iteration beside
+   the greedy one, and the sampler alone on its [8, 32000] logits.
    ``serve_spec``: the same bf16 target with ``truncated_draft(target,
    2)`` over the same traffic in the chain (spec_k 4), tree [2, 2] and
    tree [4, 2, 2] lanes, and tree [2, 2] at 60% of the worst-case
@@ -120,7 +146,10 @@ Phases, each printing JSON lines (and failing loudly on any check):
    fallback. Reports
    tokens/s beside the plain
    engine's, rounds, drafted and accepted tokens, the accept histogram,
-   tokens equal to the plain engine's and preemptions. A ``profile`` of
+   tokens equal to the plain engine's and preemptions. Then the tree
+   [2, 2] lane over the first eight requests of the sampled traffic,
+   with the same checks, its tokens reported against the plain sampled
+   engine's. A ``profile`` of
    a [4, 2, 2] round beside the plain decode step.
 6. ``serve_quant``: the same seeded Llama-2-7B converted by
    ``convert_for_serving`` to int8 weight-only linears and served with
@@ -149,8 +178,10 @@ Phases, each printing JSON lines (and failing loudly on any check):
    lanes on the card and on the CPU, an int8 tree [2, 2] lane and
    offline ``generate`` chain and tree: the card's speculative tokens
    equal its plain tokens and the CPU's, drafted/accepted counts equal
-   on both; a coupled pair (layer 1 zeroed to an identity, the draft
-   its first layer) accepts every draft. ``edge``: the engine's last
+   on both; sampled chain k4 and [2, 2] lanes on the card (three
+   samplers) whose tokens equal the card's plain sampled engine; a
+   coupled pair (layer 1 zeroed to an identity, the draft its first
+   layer) accepts every draft. ``edge``: the engine's last
    prefill chunk past max_len (a 56-token prompt, chunks of 48,
    max_len 64) at the same width and depth in fp32: the card's engine
    tokens equal its ``generate`` and the CPU engine's; the paged kernel
@@ -884,7 +915,9 @@ def traffic(rng, vocab):
     return [(prompt(n, s), m) for n, s, m in TRAFFIC]
 
 
-def serve_engine(model, requests, draft=None, **overrides):
+def serve_engine(model, requests, draft=None, params=None, **overrides):
+    """The traffic through a default-shaped engine; ``params``: one dict
+    of sampling parameters per request (None: all greedy)."""
     import torch
 
     from paddle_tpu_torch.kernels import decode_attention as da
@@ -893,10 +926,12 @@ def serve_engine(model, requests, draft=None, **overrides):
     cfg = ServingConfig(max_slots=8, max_len=2048, block_size=16,
                         prefill_chunk=256, **overrides)
     eng = ServingEngine(model, cfg, device=DEV, draft_model=draft)
+    params = params or [{}] * len(requests)
     torch.cuda.synchronize()
     da.reset_counters()
     t0 = time.perf_counter()
-    reqs = [eng.submit(p, max_new_tokens=m) for p, m in requests]
+    reqs = [eng.submit(p, max_new_tokens=m, **kw)
+            for (p, m), kw in zip(requests, params)]
     eng.run_until_idle()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -913,12 +948,15 @@ def check_bodies(tag, bodies, want):
     return got
 
 
-def _teacher_forced_all(model, prompts, outputs, label, strict):
-    """Teacher-forced check over many requests; with ``strict`` any
-    confident disagreement fails, without it the count is reported."""
+def _teacher_forced_all(model, prompts, outputs, label, strict,
+                        params=None):
+    """Teacher-forced check over many requests (``params``: their
+    sampling parameters, None for greedy); with ``strict`` any confident
+    disagreement fails, without it the count is reported."""
     checked = skipped = disagree = 0
     for i, (p, toks) in enumerate(zip(prompts, outputs)):
-        c, s, bad = teacher_forced(model, p, toks)
+        c, s, bad = teacher_forced_sampled(model, p, toks, params[i]) \
+            if params else teacher_forced(model, p, toks)
         checked, skipped, disagree = checked + c, skipped + s, \
             disagree + len(bad)
         check(not (strict and bad),
@@ -927,6 +965,37 @@ def _teacher_forced_all(model, prompts, outputs, label, strict):
     return {"teacher_forced_checked": checked,
             "teacher_forced_disagree": disagree,
             "near_ties_skipped": skipped, "teacher_forced_asserted": strict}
+
+
+def check_serve(tag, requests, reqs, st, launches, fallbacks, bodies, L,
+                dname, label):
+    """A plain engine's run over the traffic: every request completes
+    with its token count; the paged kernel launched exactly layers x
+    (decode steps + prefill chunks) times, split by body exactly, with
+    no paged fallback; an oversubscribed engine preempted. Returns the
+    bodies."""
+    for r, (p, m) in zip(reqs, requests):
+        check(r.status == "completed" and len(r.output_tokens) == m,
+              f"{tag}: request {r} did not complete with {m} tokens")
+    expect = L * (st["steps"] + st["prefill_chunks"])
+    k6 = launches["paged_flash_decode_attention"]
+    check(k6 == expect, f"{tag}: paged kernel launched {k6} times, "
+                        f"expected {L} x ({st['steps']} steps + "
+                        f"{st['prefill_chunks']} chunks) = {expect}")
+    # every chunk on the tensor cores (fp32: the SIMT tiles), every
+    # decode step on the decode-step body (fp32: the rows body)
+    name = "paged_flash_decode_attention"
+    chunk, step = ("mma", "qrows") if dname == "bfloat16" \
+        else ("tiled", "rows")
+    bodies = check_bodies(tag, bodies, {
+        f"{name}/{chunk}": L * st["prefill_chunks"],
+        f"{name}/{step}": L * st["steps"]})
+    paged_fb = {k: v for k, v in fallbacks.items()
+                if k.startswith("paged_")}
+    check(not paged_fb, f"{tag}: paged fallbacks {paged_fb}")
+    if label == "oversubscribed":
+        check(st["preemptions"] >= 1, f"{tag}: engine never preempted")
+    return bodies
 
 
 def serve_phase(model, cfg, requests, kind, strict):
@@ -945,27 +1014,8 @@ def serve_phase(model, cfg, requests, kind, strict):
             model, requests, **overrides)
         st = eng.stats()
         tag = f"{dname} {label}"
-        for r, (p, m) in zip(reqs, requests):
-            check(r.status == "completed" and len(r.output_tokens) == m,
-                  f"{tag}: request {r} did not complete with {m} tokens")
-        expect = L * (st["steps"] + st["prefill_chunks"])
-        k6 = launches["paged_flash_decode_attention"]
-        check(k6 == expect, f"{tag}: paged kernel launched {k6} times, "
-                            f"expected {L} x ({st['steps']} steps + "
-                            f"{st['prefill_chunks']} chunks) = {expect}")
-        # every chunk on the tensor cores (fp32: the SIMT tiles), every
-        # decode step on the decode-step body (fp32: the rows body)
-        name = "paged_flash_decode_attention"
-        chunk, step = ("mma", "qrows") if dname == "bfloat16" \
-            else ("tiled", "rows")
-        bodies = check_bodies(tag, bodies, {
-            f"{name}/{chunk}": L * st["prefill_chunks"],
-            f"{name}/{step}": L * st["steps"]})
-        paged_fb = {k: v for k, v in fallbacks.items()
-                    if k.startswith("paged_")}
-        check(not paged_fb, f"{tag}: paged fallbacks {paged_fb}")
-        if label == "oversubscribed":
-            check(st["preemptions"] >= 1, f"{tag}: engine never preempted")
+        bodies = check_serve(tag, requests, reqs, st, launches, fallbacks,
+                             bodies, L, dname, label)
         outputs = [list(r.output_tokens) for r in reqs]
         gen = sum(len(t) for t in outputs)
         row = {"phase": "serve", "engine": label, "model": "llama2_7b",
@@ -993,15 +1043,25 @@ def serve_phase(model, cfg, requests, kind, strict):
     return main_launches, out["default"], tps
 
 
-def profile_phase(model, requests, kind, kv_format="bf16"):
+# the sampled profile's requests: every slot samples with nucleus 0.9
+PROFILE_SAMPLING = dict(do_sample=True, top_p=0.9)
+
+
+def profile_phase(model, requests, kind, kv_format="bf16", sampled=False):
     """Where a serving iteration's time goes: the first eight requests on
     a default engine, one window of prefill iterations (every slot runs a
     256-token chunk) and one of pure decode steps. Wall time per
     iteration is taken without the profiler; device time per iteration
     (the sum of kernel times on the card) from a torch.profiler trace of
-    the same number of iterations."""
+    the same number of iterations. ``sampled``: then the same eight
+    prompts again on the same engine, every one sampling
+    (``PROFILE_SAMPLING``, seeds 100 + index; their prompts' blocks are
+    in the prefix cache, so little is prefilled again), a second decode
+    window, and the sampler alone (``split_keys`` and ``select_tokens``
+    on the step's [8, V] logits and parameters)."""
     import torch
 
+    from paddle_tpu_torch.generation import select_tokens, split_keys
     from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
     cfg = ServingConfig(max_slots=8, max_len=2048, block_size=16,
@@ -1027,6 +1087,33 @@ def profile_phase(model, requests, kind, kv_format="bf16"):
           "weights": weights, "kv_format": kv_format,
           "slots": 8, "prefill_iteration": prefill,
           "decode_iteration": decode, "card": kind})
+    if sampled:
+        for i, (p, m) in enumerate(requests[:8]):
+            eng.submit(p, max_new_tokens=m,
+                       **dict(PROFILE_SAMPLING, seed=100 + i))
+        while eng.scheduler.depth or any(j is not None for j in eng._jobs):
+            eng.step()
+        params = eng._sampler(list(range(8)))
+        check(params is not None and eng._slot_sampling.all(),
+              "sampled profile: not every slot samples")
+        sdecode = window(10)
+        logits = torch.randn(8, model.config.vocab_size, device=DEV,
+                             dtype=torch.bfloat16)
+        keys = eng._keys.clone()
+
+        def sampler():
+            _, subs = split_keys(keys)
+            select_tokens(logits, subs, *params)
+
+        smp = device_window(sampler, 10)
+        emit({"phase": "profile", "model": "llama2_7b", "dtype": "bfloat16",
+              "weights": weights, "kv_format": kv_format, "slots": 8,
+              "sampling": PROFILE_SAMPLING, "decode_iteration": sdecode,
+              "greedy_decode_iteration": decode, "sampler": smp,
+              "sampler_share_of_decode_device_ms":
+                  smp["device_ms"] / sdecode["device_ms"]
+                  if smp["device_ms"] and sdecode["device_ms"] else None,
+              "card": kind})
     del eng
     torch.cuda.empty_cache()
     return decode
@@ -1071,6 +1158,381 @@ def generate_phase(model, cfg, requests, kind, strict):
 
 
 # ---------------------------------------------------------------------------
+# sampled decode: the threefry key chain, the samplers, the sampled engine
+# ---------------------------------------------------------------------------
+
+# the served traffic's sampling parameters by request index (greedy, then
+# three samplers), each request seeded 100 + its index
+SAMPLE_CYCLE = ({}, dict(do_sample=True, temperature=0.8, top_k=40),
+                dict(do_sample=True, top_p=0.9),
+                dict(do_sample=True, temperature=1.2, top_k=12, top_p=0.95))
+# Random123's threefry2x32_20 known-answer vectors: key, counter, output
+THREEFRY_KAT = (((0, 0), (0, 0), (0x6b200159, 0x99ba4efe)),
+                ((0xffffffff, 0xffffffff), (0xffffffff, 0xffffffff),
+                 (0x1cb996fc, 0xbb002be7)),
+                ((0x13198a2e, 0x03707344), (0x243f6a88, 0x85a308d3),
+                 (0xc4923a9c, 0x483df7a0)))
+# a sampled token may differ between the card and the CPU only at a near
+# tie: the perturbed top two, or the cumulative probability and top_p,
+# within this much (float32 math; the last bits of exp and log differ)
+NEAR_TIE = 1e-5
+# ... and in bfloat16 math (plain generate on bf16 logits): 2 bf16 steps
+NEAR_TIE_BF16 = 2.0 ** -6
+
+
+def sample_params(n):
+    """Sampling parameters of ``n`` requests: ``SAMPLE_CYCLE`` by index,
+    seed 100 + index."""
+    return [dict(SAMPLE_CYCLE[i % len(SAMPLE_CYCLE)], seed=100 + i)
+            for i in range(n)]
+
+
+def _ulp_error(a, b, dtype):
+    """Largest |a - b| in ulps of max(|a|, 1) in ``dtype`` (the scale of
+    the logits a Gumbel draw perturbs)."""
+    import numpy as np
+    import torch
+
+    ulp = torch.from_numpy(np.spacing(np.maximum(
+        a.abs().numpy(), 1.0).astype(np.float32)))
+    if dtype == torch.bfloat16:
+        ulp = ulp * 2.0 ** 16
+    return float(((a - b).abs() / ulp).max())
+
+
+def _mismatch_cause(logits, key, filt, top_p):
+    """Why one row's draw can differ between devices (on the CPU's
+    values): the perturbed top-two gap (Gumbel plus the filtered logits,
+    ``filt(logits, top_p)``) and, with a top_p below 1, how near the
+    cumulative probability before a value of the top-k-filtered row
+    comes to top_p (the nucleus edge)."""
+    import torch
+
+    from paddle_tpu_torch import prng
+    from paddle_tpu_torch.generation import _scan_cumsum, _softmax
+
+    out = filt(logits, top_p)
+    pert = prng.gumbel(key, (out.shape[-1],), out.dtype) + out[0]
+    top2 = pert.float().topk(2).values
+    cause = {"perturbed_gap": float(top2[0] - top2[1])}
+    if top_p < 1.0:
+        sd = torch.sort(filt(logits, 1.0), dim=-1, descending=True).values
+        probs = _softmax(sd)
+        edge = (_scan_cumsum(probs) - probs).float() - top_p
+        cause["nucleus_edge"] = float(edge.abs().min())
+    return cause
+
+
+def sample_phase():
+    """The threefry key chain and the samplers on the card against the
+    same code on the CPU, no model: Random123's known-answer vectors;
+    64-link ``split`` chains with a ``fold_in`` per link from three
+    seeds; uniform and Gumbel draws over [8, 32000] in fp32 and bf16
+    (bits equal, Gumbel within 2 ulp of max(|g|, 1)); ``select_tokens``
+    over temperature x top_k x top_p with greedy rows mixed in (and
+    integer logits tied across the 256th value) and the
+    static selector of plain ``generate``, on fp32 and bf16 logits. Every
+    token differing between the devices is counted with its cause and
+    must be a near tie (``NEAR_TIE``)."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import prng
+    from paddle_tpu_torch.generation import (GenerationConfig,
+                                             _select_token, _static_filter,
+                                             filter_rows, select_tokens)
+
+    t0 = time.perf_counter()
+    for key, ctr, want in THREEFRY_KAT:
+        t = [torch.tensor([v], dtype=torch.int64, device=DEV)
+             for v in key + ctr]
+        got = tuple(int(y) for y in prng.threefry2x32(*t))
+        check(got == want, f"sample: threefry{key}{ctr} on the card gave "
+                           f"{[hex(v) for v in got]}, expected "
+                           f"{[hex(v) for v in want]}")
+    for seed in (0, 7, 2 ** 31 - 1):
+        chains = {}
+        for dev in ("cpu", DEV):
+            k, links = prng.PRNGKey(seed, dev), []
+            for i in range(64):
+                k, sub = prng.split(k).unbind(0)
+                links += [k, sub, prng.fold_in(k, i)]
+            chains[dev] = torch.stack(links).cpu()
+        check(torch.equal(chains["cpu"], chains[DEV]),
+              f"sample: the key chain of seed {seed} differs on the card")
+    draws = {}
+    k = prng.PRNGKey(11)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        idt = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        u = prng.uniform(k, (8, 32000), dtype)
+        ug = prng.uniform(k.to(DEV), (8, 32000), dtype).cpu()
+        check(torch.equal(u.view(idt), ug.view(idt)),
+              f"sample: {dname} uniform bits differ on the card")
+        g = prng.gumbel(k, (8, 32000), dtype).float()
+        gg = prng.gumbel(k.to(DEV), (8, 32000), dtype).cpu().float()
+        err = _ulp_error(g, gg, dtype)
+        check(err <= 2, f"sample: {dname} Gumbel {err} ulp off the CPU's")
+        # the same draw with the logs taken in the draw's own dtype, on
+        # each device, against the float64 logs prng.gumbel takes
+        f32_logs = {}
+        for dev in ("cpu", DEV):
+            uu = prng.uniform(k.to(dev), (8, 32000), dtype,
+                              minval=torch.finfo(dtype).tiny)
+            f32_logs[dev] = _ulp_error(
+                g, (-torch.log(-torch.log(uu))).cpu().float(), dtype)
+        draws[dname] = {"uniform_bits_equal": True, "gumbel_max_ulp": err,
+                        "gumbel_values_differing": int((g != gg).sum()),
+                        "dtype_logs_max_ulp": {"cpu": f32_logs["cpu"],
+                                               "card": f32_logs[DEV]}}
+
+    V = 32000
+    grid = list(itertools.product([0.7, 1.0, 1.3], [0, 1, 40, 256, 257, V],
+                                  [1.0, 0.9, 0.5]))
+    n_greedy = 6
+    ds = torch.tensor([True] * len(grid) + [False] * n_greedy)
+    temp = torch.tensor([g[0] for g in grid] + [1.0] * n_greedy)
+    tk = torch.tensor([g[1] for g in grid] + [0] * n_greedy)
+    tp = torch.tensor([g[2] for g in grid] + [1.0] * n_greedy)
+    rng = np.random.RandomState(SEED + 12)
+    tie = torch.from_numpy(np.round(rng.randn(6, V) * 2).astype(np.float32))
+    tie_rows = (torch.ones(6, dtype=torch.bool), torch.ones(6),
+                torch.tensor([256, 256, 250, 256, 200, 256]),
+                torch.tensor([0.9, 0.99, 0.5, 1.0, 0.95, 0.999]))
+    tokens, mismatches = 0, []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        logits = torch.from_numpy(
+            (rng.randn(len(ds), V) * 3).astype(np.float32)).to(dtype)
+        keys = prng.fold_in(prng.PRNGKey(3), torch.arange(len(ds)))
+        args = (ds, temp, tk, tp)
+        cases = [("grid", (logits, keys) + args),
+                 ("tie", (tie.to(dtype), keys[:6]) + tie_rows)]
+        for case, a in cases:
+            want = select_tokens(*a)
+            got = select_tokens(*(x.to(DEV) for x in a)).cpu()
+            tokens += len(want)
+            for i in torch.nonzero(want != got).flatten().tolist():
+                r = tuple(x[i:i + 1] for x in a[2:])
+                cause = _mismatch_cause(
+                    a[0][i:i + 1], a[1][i],
+                    lambda lg, top_p, r=r: filter_rows(
+                        lg, r[1], r[2], torch.full((1,), top_p), r[0]),
+                    float(r[3][0]))
+                mismatches.append({"dtype": dname, "case": case, "row": i,
+                                   "cpu": int(want[i]), "card": int(got[i]),
+                                   **cause})
+        for j, (t, kk, pp) in enumerate(((0.8, 40, 0.9), (1.0, 0, 0.5),
+                                         (1.3, 257, 1.0), (0.7, 1, 0.95))):
+            cfg = GenerationConfig(do_sample=True, temperature=t, top_k=kk,
+                                   top_p=pp)
+            key = prng.PRNGKey(9 + j)
+            want = _select_token(logits[:8], cfg, key)
+            got = _select_token(logits[:8].to(DEV), cfg, key.to(DEV)).cpu()
+            tokens += len(want)
+            for i in torch.nonzero(want != got).flatten().tolist():
+                # one key over the whole [8, V]: row i's counters start at
+                # i * V, so its draw is the flat draw's row i
+                lg = logits[:8]
+                pert = prng.gumbel(key, lg.shape, lg.dtype) \
+                    + _static_filter(lg, cfg)
+                top2 = pert[i].float().topk(2).values
+                mismatches.append({"dtype": dname, "case": "static",
+                                   "config": j, "row": i,
+                                   "cpu": int(want[i]), "card": int(got[i]),
+                                   "perturbed_gap":
+                                       float(top2[0] - top2[1])})
+    for m in mismatches:
+        near = NEAR_TIE_BF16 if m["case"] == "static" \
+            and m["dtype"] == "bfloat16" else NEAR_TIE
+        check(min(m["perturbed_gap"], m.get("nucleus_edge", 1.0)) < near,
+              f"sample: a token differs between the card and the CPU away "
+              f"from any near tie: {m}")
+    emit({"phase": "sample", "known_answers": len(THREEFRY_KAT),
+          "chain_links": 3 * 64, "draws": draws, "tokens_compared": tokens,
+          "token_mismatches": len(mismatches),
+          "mismatch_causes": mismatches[:20],
+          "seconds": time.perf_counter() - t0})
+
+
+def teacher_forced_sampled(model, prompt, emitted, params):
+    """``teacher_forced`` for a sampled request: each emitted token
+    against the port's sampler run on the plain uncached forward's
+    logits with that token's subkey (the request's seed chain, one
+    split a token). Returns (checked, skipped near-ties, mismatches as
+    (index, emitted, sampled, gap)); the gap is the perturbed top-two
+    gap (Gumbel plus the filtered logits)."""
+    import torch
+
+    from paddle_tpu_torch import prng
+    from paddle_tpu_torch.generation import filter_rows, select_tokens
+
+    if not params.get("do_sample"):
+        return teacher_forced(model, prompt, emitted)
+    seq = list(prompt) + list(emitted)
+    P, n = len(prompt), len(emitted)
+    ids = torch.tensor([seq[:P + n - 1]], device=DEV)
+    with torch.no_grad():
+        logits = model(ids)[0, P - 1:].float()
+    key, subs = prng.PRNGKey(params["seed"]), []
+    for _ in range(n):
+        key, sub = prng.split(key).unbind(0)
+        subs.append(sub)
+    subs = torch.stack(subs).to(DEV)
+
+    def rows(v, dtype):
+        return torch.full((n,), v, dtype=dtype, device=DEV)
+
+    ds = rows(True, torch.bool)
+    temp = rows(params.get("temperature", 1.0), torch.float32)
+    tk = rows(params.get("top_k", 0), torch.long)
+    tp = rows(params.get("top_p", 1.0), torch.float32)
+    toks = select_tokens(logits, subs, ds, temp, tk, tp).tolist()
+    pert = prng.gumbel(subs, (logits.shape[-1],)) \
+        + filter_rows(logits, temp, tk, tp, ds)
+    top2 = pert.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).tolist()
+    checked = skipped = 0
+    bad = []
+    for j in range(n):
+        if gap[j] <= GAP:
+            skipped += 1
+            continue
+        checked += 1
+        if toks[j] != int(emitted[j]):
+            bad.append((j, int(emitted[j]), toks[j], gap[j]))
+    return checked, skipped, bad
+
+
+def _first_divergence(model, prompt, ref, other, params):
+    """Index of the first token where ``other`` leaves ``ref`` and the
+    teacher-forced gap there (perturbed top two for a sampled request),
+    or None when they agree."""
+    import torch
+
+    from paddle_tpu_torch import prng
+    from paddle_tpu_torch.generation import filter_rows
+
+    j = next((i for i, (a, b) in enumerate(zip(ref, other)) if a != b),
+             None)
+    if j is None:
+        return None
+    seq = list(prompt) + list(ref[:j])
+    with torch.no_grad():
+        lg = model(torch.tensor([seq], device=DEV))[0, -1:].float()
+    if params.get("do_sample"):
+        key = prng.PRNGKey(params["seed"])
+        for _ in range(j + 1):
+            key, sub = prng.split(key).unbind(0)
+        one = torch.ones(1, device=DEV)
+        lg = prng.gumbel(sub.to(DEV), lg.shape, torch.float32) + filter_rows(
+            lg, one * params.get("temperature", 1.0),
+            (one * params.get("top_k", 0)).long(),
+            one * params.get("top_p", 1.0), one.bool())
+    top2 = lg[0].topk(2).values
+    return j, float(top2[0] - top2[1])
+
+
+def serve_sample_phase(model, cfg, requests, kind, strict, greedy_tps):
+    """The traffic with sampling parameters (``sample_params``: greedy
+    and three samplers, seeds 100 + index) through the default engine
+    and one at 60% of the blocks (which must preempt): every request
+    completes with its token count; the paged kernel's launches and
+    bodies exactly as in ``serve_phase``, no paged fallback; tokens/s
+    beside the greedy engine's. The teacher-forced check runs the
+    sampler on the plain forward's logits with each token's subkey. With
+    ``strict`` (fp32): the oversubscribed engine's tokens (preemption
+    replays the key chain) equal the default engine's, and ``generate``
+    at B = 1 equals the engine on two sampled requests, a divergence
+    allowed only at a near tie (gap at most ``GAP``, counted). Returns
+    the default engine's outputs and tokens/s."""
+    import torch
+
+    from paddle_tpu_torch.generation import generate
+
+    t0 = time.perf_counter()
+    L = cfg.num_hidden_layers
+    dname = str(next(model.parameters()).dtype).split(".")[-1]
+    params = sample_params(len(requests))
+    prompts = [p for p, _ in requests]
+    full = 8 * (2048 // 16) + 1
+    out = {}
+    for label, overrides in (("default", {}),
+                             ("oversubscribed",
+                              {"num_blocks": int(0.6 * full)})):
+        eng, reqs, secs, launches, fallbacks, bodies = serve_engine(
+            model, requests, params=params, **overrides)
+        st = eng.stats()
+        tag = f"serve_sample {dname} {label}"
+        bodies = check_serve(tag, requests, reqs, st, launches, fallbacks,
+                             bodies, L, dname, label)
+        outputs = [list(r.output_tokens) for r in reqs]
+        gen = sum(len(t) for t in outputs)
+        row = {"phase": "serve_sample", "engine": label,
+               "model": "llama2_7b", "dtype": dname,
+               "requests": len(reqs),
+               "sampled_requests": sum(bool(p.get("do_sample"))
+                                       for p in params),
+               "params": [SAMPLE_CYCLE[i % len(SAMPLE_CYCLE)]
+                          for i in range(len(SAMPLE_CYCLE))],
+               "num_blocks": eng._nblocks, "decode_steps": st["steps"],
+               "prefill_chunks": st["prefill_chunks"],
+               "preemptions": st["preemptions"],
+               "generated_tokens": gen, "seconds": secs,
+               "tokens_per_s": gen / secs,
+               "greedy_tokens_per_s": greedy_tps,
+               "kernel_launches": launches, "kernel_bodies": bodies,
+               "fallbacks": fallbacks, "card": kind}
+        del eng
+        torch.cuda.empty_cache()
+        # a request whose tokens equal the default engine's carries that
+        # engine's check
+        tf_req = [i for i, o in enumerate(outputs)
+                  if out.get("default") is None or o != out["default"][i]]
+        row.update(_teacher_forced_all(
+            model, [prompts[i] for i in tf_req], [outputs[i] for i in tf_req],
+            tag, strict, [params[i] for i in tf_req]))
+        row["teacher_forced_requests"] = tf_req
+        if label == "oversubscribed":
+            diverged = []
+            for i, (a, b) in enumerate(zip(out["default"], outputs)):
+                d = _first_divergence(model, prompts[i], a, b, params[i])
+                if d is not None:
+                    diverged.append((i,) + d)
+                    check(not strict or d[1] <= GAP,
+                          f"{tag}: request {i} replayed after preemption "
+                          f"diverges at token {d[0]} (gap {d[1]})")
+            row["requests_equal_to_default_engine"] = \
+                len(requests) - len(diverged)
+            row["replay_divergences"] = diverged
+            row["replay_asserted"] = strict
+        out[label] = outputs
+        emit(row)
+        if label == "default":
+            tps = row["tokens_per_s"]
+    done = {"phase": "serve_sample", "dtype": dname, "card": kind}
+    if strict:
+        rows = {}
+        for i in (9, 11):
+            p, m = requests[i]
+            toks = generate(model, [p], max_new_tokens=m,
+                            **params[i])[0, len(p):].tolist()
+            d = _first_divergence(model, p, out["default"][i], toks,
+                                  params[i])
+            check(d is None or d[1] <= GAP,
+                  f"serve_sample {dname}: generate on request {i} "
+                  f"{params[i]} diverges from the engine at token {d}")
+            rows[i] = {"params": params[i], "equal": d is None,
+                       "divergence": d}
+        done.update({"check": "generate B=1", "requests": rows})
+    done["phase_seconds"] = time.perf_counter() - t0
+    emit(done)
+    return out["default"], tps
+
+
+# ---------------------------------------------------------------------------
 # speculative serving: chain and tree lanes, K8 (ancestor-masked paged decode)
 # ---------------------------------------------------------------------------
 
@@ -1080,6 +1542,11 @@ SPEC_LANES = (("chain k4", dict(spec_k=4)),
               ("tree [4,2,2]", dict(spec_tree=(4, 2, 2))),
               ("tree [2,2] oversubscribed", dict(spec_tree=(2, 2),
                                                  num_blocks=int(0.6 * 1025))))
+# the same lanes over the first requests of the sampled traffic
+# (``sample_params``): the tree lane, whose drafts fold the chain subkey
+# (the chain lane's sampled tokens are asserted in ``spec_parity``)
+SAMPLED_SPEC_LANES = (("tree [2,2] sampled", dict(spec_tree=(2, 2))),)
+SAMPLED_SPEC_REQUESTS = 8
 
 
 def expected_spec_launches(L, Ld, overrides, st, quant):
@@ -1130,19 +1597,20 @@ def expected_spec_bodies(L, Ld, overrides, st, quant):
 
 
 def spec_lane(model, draft, requests, label, overrides, plain, kind,
-              quant=False):
+              quant=False, params=None):
     """One speculative lane over the traffic: every request completes with
     its token count, the launch counts are exact (``expected_spec_launches``)
     with no fallback; reports tokens/s beside the plain engine's of the
     same run, the spec accounting and the tokens equal to the plain
-    engine's. Returns the launch counts."""
+    engine's (with sampling ``params``, the plain sampled engine's).
+    Returns the launch counts."""
     import torch
 
     from paddle_tpu_torch.kernels import quant_matmul as qm
 
     qm.reset_counters()
     eng, reqs, secs, launches, fallbacks, bodies = serve_engine(
-        model, requests, draft=draft, **overrides)
+        model, requests, draft=draft, params=params, **overrides)
     qmm = dict(qm.LAUNCHES)
     st = eng.stats()
     sp = st["spec"]
@@ -1185,7 +1653,11 @@ def spec_lane(model, draft, requests, label, overrides, plain, kind,
            "plain_bf16_tokens_per_s": plain["bf16_tokens_per_s"],
            "kernel_launches": got, "kernel_launches_expected": want,
            "kernel_bodies": bodies, "card": kind}
-    for name, ref in plain["outputs"].items():
+    if params:
+        row["sampled_requests"] = sum(bool(p.get("do_sample"))
+                                      for p in params)
+    for name, ref in plain["sampled_outputs" if params
+                           else "outputs"].items():
         row[f"tokens_equal_to_plain_{name}_engine"] = sum(
             x == y for a, b in zip(outputs, ref) for x, y in zip(a, b))
         row[f"requests_equal_to_plain_{name}_engine"] = sum(
@@ -1198,12 +1670,22 @@ def spec_lane(model, draft, requests, label, overrides, plain, kind,
 
 def serve_spec_phase(model, requests, plain, kind):
     """The bf16 target with its 2-layer truncated draft over the traffic
-    in every lane of ``SPEC_LANES``. Returns the launch counts by lane."""
+    in every lane of ``SPEC_LANES``, then over the first
+    ``SAMPLED_SPEC_REQUESTS`` of the sampled traffic in
+    ``SAMPLED_SPEC_LANES`` (tokens reported against the plain sampled
+    engine's). Returns the launch counts by lane."""
     from paddle_tpu_torch.generation import truncated_draft
 
     draft = truncated_draft(model, DRAFT_LAYERS)
     out = {label: spec_lane(model, draft, requests, label, ov, plain, kind)
            for label, ov in SPEC_LANES}
+    n = SAMPLED_SPEC_REQUESTS
+    for label, ov in SAMPLED_SPEC_LANES:
+        t0 = time.perf_counter()
+        out[label] = spec_lane(model, draft, requests[:n], label, ov, plain,
+                               kind, params=sample_params(n))
+        emit({"phase": "serve_spec", "lane": label,
+              "phase_seconds": time.perf_counter() - t0})
     del draft
     return out
 
@@ -1285,12 +1767,13 @@ def spec_parity_phase(kind):
                for n in (40, 200, 90)]
     new = [6, 6, 6]
 
-    def serve(model, draft, dev, n_req=3, **ov):
+    def serve(model, draft, dev, n_req=3, sampling=None, **ov):
         eng = ServingEngine(model, ServingConfig(
             max_slots=2, max_len=512, block_size=16, prefill_chunk=128,
             **ov), device=dev, draft_model=draft)
-        reqs = [eng.submit(p, max_new_tokens=n)
-                for p, n in zip(prompts[:n_req], new)]
+        sampling = sampling or [{}] * n_req
+        reqs = [eng.submit(p, max_new_tokens=n, **kw)
+                for p, n, kw in zip(prompts[:n_req], new, sampling)]
         eng.run_until_idle()
         check(all(r.status == "completed" for r in reqs),
               f"spec_parity: {dev} engine left requests unfinished")
@@ -1320,6 +1803,20 @@ def spec_parity_phase(kind):
                                       if v}
     check(da.LAUNCHES["paged_flash_decode_attention_tree"] > 0,
           "spec_parity: the fp32 tree lanes did not run K8")
+
+    # sampled lanes on the card: the three samplers of SAMPLE_CYCLE, one
+    # a request; the speculative tokens equal the plain sampled engine's
+    sp = [dict(SAMPLE_CYCLE[1 + i], seed=100 + i) for i in range(3)]
+    splain = serve(gpu, None, DEV, sampling=sp)[0]
+    result["plain_sampled_tokens_cuda"] = splain
+    for label, ov in (("chain k4 sampled", dict(spec_k=4)),
+                      ("tree [2,2] sampled", dict(spec_tree=(2, 2)))):
+        toks, counts = serve(gpu, models["cuda"][1], DEV, sampling=sp, **ov)
+        result[label] = {"tokens_equal_plain": toks == splain,
+                         "drafted_accepted_cuda": counts}
+        check(toks == splain,
+              f"spec_parity {label}: card spec tokens {toks} != card plain "
+              f"sampled tokens {splain}")
 
     # int8 weights and KV, tree [2, 2]: both devices from the CPU's
     # converted weights (two requests, four new tokens)
@@ -2978,6 +3475,8 @@ def main(argv=None) -> int:
     tree_rows = tree_kernel_phase(np.random.RandomState(SEED + 6))
     split_sweep_phase(np.random.RandomState(SEED + 8))
     flash_rows = flash_kernel_phase(rng)
+    # the threefry key chain and the samplers, card against CPU
+    sample_phase()
 
     cfg = LlamaConfig.llama2_7b(dtype="bfloat16")
     t0 = time.perf_counter()
@@ -2994,17 +3493,27 @@ def main(argv=None) -> int:
     serve_launches, bf16_outputs, bf16_tps = serve_phase(
         model, cfg, requests, kind, strict=False)
     gen_launches = generate_phase(model, cfg, requests, kind, strict=False)
-    plain_decode = profile_phase(model, requests, kind)
+    # beside the greedy decode iteration, one where every slot samples
+    plain_decode = profile_phase(model, requests, kind, sampled=True)
+    # sampled serving: the same traffic with sampling parameters
+    sampled_outputs, _ = serve_sample_phase(model, cfg, requests, kind,
+                                            strict=False,
+                                            greedy_tps=bf16_tps)
     # speculative serving: the same target with its truncated draft in
-    # the chain and tree lanes, then a profiled [4, 2, 2] round
+    # the chain and tree lanes (greedy, then sampled), then a profiled
+    # [4, 2, 2] round
     spec_launches = serve_spec_phase(
         model, requests, {"bf16_tokens_per_s": bf16_tps,
-                          "outputs": {"bf16": bf16_outputs}}, kind)
+                          "outputs": {"bf16": bf16_outputs},
+                          "sampled_outputs": {"bf16_sampled":
+                                              sampled_outputs}}, kind)
     spec_profile_phase(model, requests, kind, plain_decode)
     model.float()
     torch.cuda.empty_cache()
-    serve_phase(model, cfg, requests, kind, strict=True)
+    _, _, fp32_tps = serve_phase(model, cfg, requests, kind, strict=True)
     generate_phase(model, cfg, requests, kind, strict=True)
+    serve_sample_phase(model, cfg, requests, kind, strict=True,
+                       greedy_tps=fp32_tps)
     del model
     torch.cuda.empty_cache()
 

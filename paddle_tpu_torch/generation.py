@@ -1,4 +1,4 @@
-"""KV caches and greedy generation (counterpart of the serving subset of
+"""KV caches and generation (counterpart of the serving subset of
 ``paddle_tpu/generation.py``).
 
 Caches are pre-allocated per layer: contiguous ``{"k", "v"}`` buffers
@@ -18,15 +18,19 @@ load, and the plain attention reads a dequantized view
 (``dequantize_kv_buffer``, ``gather_paged_kv_dequant``). The storage
 dtype is the format (``kv_format_of``).
 
-``generate`` is the greedy path: equal-length prompts, one cached
-forward per token in a Python loop, EOS masking. With ``draft_model=``
-it decodes speculatively (``_generate_speculative``: a draft chain of
-``spec_k`` tokens a round, or ``_generate_speculative_tree``: a draft
-token tree of ``spec_tree`` branching factors, scored by the target in
-one cached forward under the tree's ancestor mask); the tokens equal
-plain greedy decode, the draft only decides how far a round advances.
-Sampling needs the JAX package's threefry key chain ported bit for bit
-and comes with a later slice.
+``generate`` prefills the prompts (equal-length, or ragged and
+left-padded under ``pad_token_id``) in one cached forward, then runs one
+cached forward per token in a Python loop, with EOS masking; ``stream``
+yields the tokens as they land. Tokens are greedy, or sampled with
+temperature / top-k / top-p (``_select_token``; ``select_tokens`` per
+row) on the JAX package's threefry key chain (``prng``), so a seed gives
+the reference's tokens. With ``draft_model=`` it decodes speculatively
+(``_generate_speculative``: a draft chain of ``spec_k`` tokens a round,
+or ``_generate_speculative_tree``: a draft token tree of ``spec_tree``
+branching factors, scored by the target in one cached forward under the
+tree's ancestor mask); draft and target select with the same subkeys, so
+the tokens equal plain decode, greedy or sampled, and the draft only
+decides how far a round advances.
 """
 
 from __future__ import annotations
@@ -37,12 +41,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import prng
 from .kernels.decode_attention import ancestor_visibility
 from .quantization.intx import (KV_FORMATS, absmax_along, format_dtype,
                                 format_itemsize, format_of_dtype,
                                 pack_absmax, unpack_absmax)
 
-__all__ = ["GenerationConfig", "generate", "make_kv_caches",
+__all__ = ["GenerationConfig", "generate", "generate_uncached",
+           "make_kv_caches", "select_tokens", "split_keys",
+           "split_key_levels",
            "spec_accept_length", "spec_tree_plan", "truncated_draft",
            "make_paged_kv_pools", "kv_cache_write", "paged_kv_cache_write",
            "kv_cache_write_quant", "paged_kv_cache_write_quant",
@@ -452,13 +459,154 @@ def make_cached_runner(model):
     return run
 
 
-def _no_sampling(do_sample: bool) -> None:
-    if do_sample:
-        raise NotImplementedError(
-            "do_sample=True: sampled decode needs the JAX package's threefry "
-            "key chain (paddle_tpu/generation.py split_keys / "
-            "select_tokens) ported bit for bit; it comes with the "
-            "sampled-decode slice. Greedy decode is ported.")
+# ---------------------------------------------------------------------------
+# sampling: the JAX package's token selection on its threefry key chain
+# ---------------------------------------------------------------------------
+
+# XLA:CPU rewrites a cumulative sum into a scan over blocks of this many
+# elements: a sequential prefix inside each block, the same scan over the
+# block totals, and each block's exclusive prefix added back
+_SCAN_BASE = 16
+
+
+def _scan_cumsum(x):
+    """``jnp.cumsum`` over the last axis with XLA:CPU's order of adds
+    (``_SCAN_BASE`` blocks, recursively), every add rounded to ``x``'s
+    dtype: bit-equal to the reference in float32 and in bfloat16, on the
+    CPU and on the card (torch's own cumsum accumulates a bfloat16 scan
+    in float32, and in another order on CUDA)."""
+    n = x.shape[-1]
+    if n <= _SCAN_BASE:
+        out = x.clone()
+        for j in range(1, n):
+            out[..., j] += out[..., j - 1]
+        return out
+    m = -(-n // _SCAN_BASE)
+    xp = torch.nn.functional.pad(x, (0, m * _SCAN_BASE - n))
+    within = _scan_cumsum(xp.reshape(x.shape[:-1] + (m, _SCAN_BASE)))
+    tot = _scan_cumsum(within[..., -1].contiguous())
+    excl = torch.nn.functional.pad(tot[..., :-1], (1, 0))
+    return (within + excl[..., None]).reshape(
+        x.shape[:-1] + (m * _SCAN_BASE,))[..., :n]
+
+
+def _softmax(x):
+    """``jax.nn.softmax`` over the last axis in ``x``'s dtype: exp of the
+    max-shifted values (taken in float64 and rounded, so it is the same
+    on every device), divided by their sum (taken in float32 and rounded
+    back for narrow floats, as ``jnp.sum`` does)."""
+    e = torch.exp((x - x.amax(dim=-1, keepdim=True)).double()).to(x.dtype)
+    return e / e.sum(dim=-1, keepdim=True, dtype=torch.float32).to(x.dtype)
+
+
+def _scalar(v, dtype, device):
+    """A Python number as the reference's weakly typed scalar: float32
+    first, then ``dtype`` (a fill on the device, not a host copy)."""
+    return torch.full((), float(np.float32(v)), dtype=torch.float32,
+                      device=device).to(dtype)
+
+
+def _nucleus_cutoff(sd, top_p):
+    """Smallest value of the descending ``sd`` still inside the nucleus
+    (the cumulative probability before it is below ``top_p``), [B, 1]."""
+    probs = _softmax(sd)
+    cum = _scan_cumsum(probs)
+    inside = cum - probs < top_p
+    inf = torch.full((), float("inf"), dtype=sd.dtype, device=sd.device)
+    return torch.where(inside, sd, inf).amin(dim=-1, keepdim=True)
+
+
+def _static_filter(logits, cfg: GenerationConfig):
+    """The sampling filter of ``_select_token``: temperature, then top-k
+    and top-p as -1e30 fills, in the logits' dtype (in bfloat16 the
+    temperature and top_p round to it, as the reference's weakly typed
+    scalars do)."""
+    dt, dev = logits.dtype, logits.device
+    neg = _scalar(-1e30, dt, dev)
+    logits = logits / _scalar(max(cfg.temperature, 1e-6), dt, dev)
+    if cfg.top_k > 0:
+        kth = torch.sort(logits, dim=-1).values[:, -cfg.top_k][:, None]
+        logits = torch.where(logits < kth, neg, logits)
+    if cfg.top_p < 1.0:
+        sd = torch.sort(logits, dim=-1, descending=True).values
+        cutoff = _nucleus_cutoff(sd, _scalar(cfg.top_p, dt, dev))
+        logits = torch.where(logits < cutoff, neg, logits)
+    return logits
+
+
+def _select_token(logits, cfg: GenerationConfig, key):
+    """logits [B, V] -> next token [B] under the static ``cfg``: argmax,
+    or a draw over the filtered logits with ONE key for the whole
+    [B, V] (its counters run flat over it)."""
+    if not cfg.do_sample:
+        return logits.argmax(dim=-1)
+    return prng.categorical(key, _static_filter(logits, cfg))
+
+
+def split_keys(keys):
+    """Per-row PRNG advance: [B, 2] keys -> (new_keys [B, 2], subkeys
+    [B, 2]), each row ``jax.random.split`` of that row's key, so a slot's
+    chain inside a batched step is the ``key, sub = split(key)`` chain
+    ``generate`` walks for one request."""
+    pairs = prng.split(keys)
+    return pairs[:, 0], pairs[:, 1]
+
+
+def split_key_levels(keys, n: int):
+    """The per-row chain walked ``n`` levels ahead without committing:
+    [B, 2] -> (levels [B, n + 1, 2], subs [B, n, 2]); ``levels[:, j]`` is
+    each row's key after j splits and ``subs[:, j]`` the subkey of the
+    (j + 1)-th emitted token. A speculative verify selects with these and
+    commits the chain at ``levels[:, n_emit]``: one split per emitted
+    token, so a slot's key stays a function of (seed, tokens emitted)."""
+    levels, subs = [keys], []
+    for _ in range(n):
+        keys, sub = split_keys(keys)
+        levels.append(keys)
+        subs.append(sub)
+    return torch.stack(levels, dim=1), torch.stack(subs, dim=1)
+
+
+def select_tokens(logits, keys, do_sample, temperature, top_k, top_p):
+    """Per-row selection with per-row parameters: [B, V] logits, [B, 2]
+    keys and [B] ``do_sample`` / ``temperature`` / ``top_k`` / ``top_p``
+    (float32, as the reference's state holds them) -> [B] tokens. Row by
+    row the math is ``_select_token`` on that row alone with its own key,
+    so mixed greedy and sampled rows share one call. ``top_k <= 0`` and
+    ``top_p >= 1`` disable their filters. The division by a float32
+    temperature promotes bfloat16 logits: the filter and the draw run in
+    float32.
+
+    The filter sorts each whole row. The reference's top-256 fast path
+    builds the same masked sorted array whenever it applies, so one
+    path gives its tokens in both of its cases."""
+    dev = logits.device
+    ds = torch.as_tensor(do_sample, device=dev).bool()
+    temp = torch.as_tensor(temperature, device=dev).float()
+    tk = torch.as_tensor(top_k, device=dev).long()
+    tp = torch.as_tensor(top_p, device=dev).float()
+    out = filter_rows(logits, temp, tk, tp, ds)
+    sampled = prng.categorical(keys, out)
+    return torch.where(ds, sampled, logits.argmax(dim=-1))
+
+
+def filter_rows(logits, temperature, top_k, top_p, do_sample):
+    """The per-row filter of ``select_tokens`` ([B] tensors on the
+    logits' device): the logits divided by the temperature, with the
+    tokens outside each row's top-k and top-p set filled with -1e30."""
+    V = logits.shape[-1]
+    dev = logits.device
+    tk, tp = top_k, top_p
+    lg = logits / torch.clamp(temperature, min=1e-6)[:, None]
+    neg = torch.full((), -1e30, dtype=lg.dtype, device=dev)
+    sorted_desc = torch.sort(lg, dim=-1, descending=True).values
+    kth = sorted_desc.gather(1, torch.clamp(torch.clamp(tk, max=V) - 1,
+                                            0, V - 1)[:, None])
+    kfilt = (tk > 0)[:, None]
+    out = torch.where(kfilt & (lg < kth), neg, lg)
+    sd = torch.where(kfilt & (sorted_desc < kth), neg, sorted_desc)
+    cutoff = _nucleus_cutoff(sd, tp[:, None].to(lg.dtype))
+    return torch.where((tp < 1.0)[:, None] & (out < cutoff), neg, out)
 
 
 # ---------------------------------------------------------------------------
@@ -475,7 +623,8 @@ def spec_accept_length(drafts, candidates, spec_len):
     token the target emits after bundle position j), ``spec_len`` [B]
     the per-row live bundle width (0 = row idle). Returns ``n_emit`` [B]
     int64: the round emits ``candidates[b, :n_emit[b]]``, every one the
-    token plain greedy decode would have chosen."""
+    token plain decode would have chosen (sampled too: draft and target
+    select position j with the same subkey)."""
     k = drafts.shape[1]
     match = (drafts == candidates[:, :k]).long()
     n_acc = torch.cumprod(match, dim=1).sum(dim=1)
@@ -583,12 +732,45 @@ def tree_children(lvl, factor: int):
     return top.reshape(lvl.shape[0], -1)
 
 
-def draft_tree(drun, caches_at, tokens, pos, plan):
+def sampled_children(lvl, factor: int, first: int, base, params,
+                     greedy):
+    """Sampled children of one draft-tree level: ``lvl`` [B, n, V] logits
+    of the level's n nodes, ``first`` the BFS index of the next level's
+    first node, ``base`` [B, 2] the chain subkey of the level's depth.
+    Branch 0 of each node draws with ``base`` (the draw the plain
+    sampler makes, hence the token the verify selects when the path
+    holds), branch r > 0 with ``fold_in(base, BFS index)``. Rows whose
+    ``do_sample`` is off keep their ``greedy`` children. ``params`` is
+    (do_sample, temperature, top_k, top_p) per row. Returns
+    [B, n * factor]."""
+    B, n, V = lvl.shape
+    w_next = n * factor
+    ds, temp, tk, tp = params
+    gidx = first + torch.arange(w_next, device=lvl.device)
+    folded = prng.fold_in(base[:, None, :], gidx[None, :])
+    use_base = (torch.arange(w_next, device=lvl.device) % factor) == 0
+    keys = torch.where(use_base[None, :, None],
+                       base[:, None, :].expand(B, w_next, 2), folded)
+
+    def rep(x):
+        return x.repeat_interleave(w_next)
+
+    sampled = select_tokens(
+        lvl.repeat_interleave(factor, dim=1).reshape(B * w_next, V),
+        keys.reshape(B * w_next, 2), rep(ds), rep(temp), rep(tk),
+        rep(tp)).reshape(B, w_next)
+    return torch.where(ds[:, None], sampled, greedy)
+
+
+def draft_tree(drun, caches_at, tokens, pos, plan, subs=None, params=None):
     """Grow the draft token tree: D forwards, level t re-feeding the whole
     tree so far (``caches_at(n)``: the draft caches carrying the n-node
     ancestor mask and depths), then one write-only forward at full width
     so a deep accept never leaves the next round attending a hole.
-    Returns the [B, w] BFS token tree (node 0 = ``tokens``)."""
+    Children are greedy (``tree_children``) or, given the chain subkeys
+    ``subs`` [B, >= D, 2] and the rows' sampling ``params``,
+    ``sampled_children`` with level t's subkey. Returns the [B, w] BFS
+    token tree (node 0 = ``tokens``)."""
     off = [int(o) for o in plan["offsets"]]
     B, w = tokens.shape[0], int(plan["nodes"])
     tok_tree = torch.zeros((B, w), dtype=torch.long, device=tokens.device)
@@ -596,15 +778,37 @@ def draft_tree(drun, caches_at, tokens, pos, plan):
     for t, f in enumerate(plan["factors"]):
         n = off[t + 1]
         logits, _ = drun(tok_tree[:, :n], caches_at(n), pos)
-        tok_tree[:, n:off[t + 2]] = tree_children(logits[:, off[t]:n], f)
+        lvl = logits[:, off[t]:n]
+        children = tree_children(lvl, f)
+        if subs is not None:
+            children = sampled_children(lvl, f, n, subs[:, t], params,
+                                        children)
+        tok_tree[:, n:off[t + 2]] = children
     drun(tok_tree, caches_at(w), pos)
     return tok_tree
+
+
+def rows_select(logits, subs, params):
+    """Select a bundle: ``logits`` [B, m, V] with per-position subkeys
+    ``subs`` [B, m, 2] under the rows' sampling ``params`` (None: greedy
+    argmax) -> [B, m]."""
+    if params is None:
+        return logits.argmax(dim=-1)
+    B, m, V = logits.shape
+    ds, temp, tk, tp = params
+
+    def rep(x):
+        return x.repeat_interleave(m)
+
+    return select_tokens(logits.reshape(B * m, V), subs.reshape(B * m, 2),
+                         rep(ds), rep(temp), rep(tk),
+                         rep(tp)).reshape(B, m)
 
 
 def tree_accept(bundle, cand, spec_len, plan, pt):
     """The deepest root-to-leaf path whose every node matches the
     target's selection for its parent: ``bundle`` [B, w] tokens, ``cand``
-    [B, w] the target's argmax per node, ``spec_len`` [B] each row's live
+    [B, w] the target's selection per node, ``spec_len`` [B] each row's live
     BFS-prefix width, ``pt`` the plan's tensors. Returns (n_emit [B],
     path [B, D+1] node indices, the emitted tokens [B, D+1] (the first
     n_emit valid), the last emitted token [B])."""
@@ -663,11 +867,38 @@ def _with_tree(caches, plan, pt, n: int, B: int, **extra):
             for c in caches]
 
 
+
+
+def _row_params(cfg: GenerationConfig, B: int, device):
+    """The static config as per-row sampling parameters (do_sample,
+    temperature, top_k, top_p), or None for greedy decode."""
+    if not cfg.do_sample:
+        return None
+    return (torch.ones(B, dtype=torch.bool, device=device),
+            torch.full((B,), cfg.temperature, dtype=torch.float32,
+                       device=device),
+            torch.full((B,), cfg.top_k, dtype=torch.long, device=device),
+            torch.full((B,), cfg.top_p, dtype=torch.float32, device=device))
+
+
+def _spec_row_keys(seed: int, B: int, device):
+    """Per-row chain roots of the speculative path: ``PRNGKey(seed)`` at
+    B = 1 (the chain plain ``generate`` walks, so a single row's sampled
+    tokens equal it), ``fold_in(root, row)`` at B > 1 (plain generate
+    draws all rows from one shared key per position, which rows
+    advancing at different rates cannot share)."""
+    root = prng.PRNGKey(seed, device)
+    if B == 1:
+        return root[None]
+    return prng.fold_in(root, torch.arange(B, device=device))
+
+
 def _spec_setup(model, draft_model, ids, cfg, extra: int):
     """Checks and the prefill shared by the offline chain and tree paths:
     both models prefill the prompt into contiguous caches with ``extra``
-    positions of room past S + N. Returns (runners, caches, first token,
-    device)."""
+    positions of room past S + N, and the first token is selected with
+    each row's first subkey. Returns (runners, caches, first token, the
+    rows' keys after it, the rows' sampling params)."""
     B, S = ids.shape
     N = cfg.max_new_tokens
     _check_draft_vocab(model.config, draft_model.config)
@@ -687,7 +918,10 @@ def _spec_setup(model, draft_model, ids, cfg, extra: int):
                              device=device)
     logits, _ = run(ids, caches, 0)
     drun(ids, dcaches, 0)
-    return run, drun, caches, dcaches, logits[:, -1].argmax(dim=-1)
+    params = _row_params(cfg, B, device)
+    levels, subs = split_key_levels(_spec_row_keys(cfg.seed, B, device), 1)
+    token = rows_select(logits[:, -1:], subs, params)[:, 0]
+    return run, drun, caches, dcaches, token, levels[:, 1], params
 
 
 def _finish_spec(ids, out, cfg):
@@ -699,28 +933,41 @@ def _finish_spec(ids, out, cfg):
     return torch.cat([ids, gen], dim=1)
 
 
+def _commit_keys(levels, n_emit):
+    """The rows' chains after ``n_emit`` [B] emitted tokens: one split
+    per emitted token."""
+    return levels.gather(1, n_emit.long()[:, None, None].expand(
+        -1, 1, 2))[:, 0]
+
+
 def _generate_speculative(model, draft_model, ids, cfg: GenerationConfig,
                           spec_k: int):
     """Offline speculative decode (the serving chain lane's oracle): the
-    draft proposes ``spec_k`` tokens, the target scores the whole bundle
-    in ONE cached forward (q_len spec_k + 1) and the longest draft prefix
-    matching its own selections is accepted. Greedy tokens equal plain
-    ``generate``. Rejected KV is rolled back by position: the next
-    round's writes land on top of it before any query can attend it."""
+    draft proposes ``spec_k`` tokens a round, the target scores the whole
+    bundle in ONE cached forward (q_len spec_k + 1) and the longest draft
+    prefix matching its own selections is accepted. Draft and target
+    select position j with the same chain subkey (common-noise
+    coupling), and the chain commits one split per emitted token, so the
+    tokens equal plain decode, greedy or sampled. Rejected KV is rolled
+    back by position: the next round's writes land on top of it before
+    any query can attend it."""
     B, S = ids.shape
     N, k = cfg.max_new_tokens, int(spec_k)
-    run, drun, caches, dcaches, token = _spec_setup(model, draft_model, ids,
-                                                    cfg, k)
+    run, drun, caches, dcaches, token, keys, params = _spec_setup(
+        model, draft_model, ids, cfg, k)
     out = [[t] for t in token.tolist()]
     emitted = np.ones(B, np.int64)
     pos = np.full(B, S, np.int64)
     while int(emitted.min()) < N:
         spec_len = torch.from_numpy(np.minimum(k + 1, N - emitted))
         pos_t = torch.from_numpy(pos.astype(np.int32)).to(ids.device)
+        levels, subs = (None, None) if params is None else \
+            split_key_levels(keys, k + 1)
         tok, drafts = token, []
         for j in range(k):
             logits, _ = drun(tok[:, None], dcaches, pos_t + j)
-            tok = logits[:, 0].argmax(dim=-1)
+            tok = rows_select(logits, None if subs is None
+                              else subs[:, j:j + 1], params)[:, 0]
             drafts.append(tok)
         # write-only forward for the last draft token: a full accept
         # advances past pos+k, whose draft KV would otherwise be a hole
@@ -728,8 +975,10 @@ def _generate_speculative(model, draft_model, ids, cfg: GenerationConfig,
         drafts = torch.stack(drafts, dim=1)
         logits, _ = run(torch.cat([token[:, None], drafts], dim=1), caches,
                         pos_t)
-        cand = logits.argmax(dim=-1)                    # [B, k+1]
+        cand = rows_select(logits, subs, params)        # [B, k+1]
         n_emit = spec_accept_length(drafts, cand, spec_len.to(ids.device))
+        if params is not None:
+            keys = _commit_keys(levels, n_emit)
         last = cand.gather(1, (n_emit - 1).clamp(min=0)[:, None])[:, 0]
         token = torch.where(n_emit > 0, last, token)
         n_np, cand_np = n_emit.cpu().numpy(), cand.cpu().numpy()
@@ -744,12 +993,14 @@ def _generate_speculative_tree(model, draft_model, ids,
                                cfg: GenerationConfig, spec_tree):
     """Offline tree-speculative decode (the serving tree lane's oracle):
     the draft grows a token tree of ``spec_tree`` branching factors
-    (``draft_tree``), the target scores all w flattened nodes in ONE
-    cached forward under the tree's ancestor mask, and the deepest path
-    matching the target's selections is emitted (``tree_accept``). The
-    accepted path's KV is moved onto consecutive positions in both
-    models' caches (``kv_path_move``). Greedy tokens equal plain
-    ``generate``."""
+    (``draft_tree``; sampled children draw with the chain subkey of their
+    depth, branch r > 0 folded), the target scores all w flattened nodes
+    in ONE cached forward under the tree's ancestor mask, each node
+    selecting with its depth's subkey, and the deepest path matching the
+    target's selections is emitted (``tree_accept``); the chain commits
+    one split per emitted token. The accepted path's KV is moved onto
+    consecutive positions in both models' caches (``kv_path_move``). The
+    tokens equal plain decode, greedy or sampled."""
     plan = spec_tree_plan(spec_tree)
     D, w = int(plan["depth"]), int(plan["nodes"])
     off = [int(o) for o in plan["offsets"]]
@@ -762,8 +1013,8 @@ def _generate_speculative_tree(model, draft_model, ids,
             f"prompt ({S}) + max_new_tokens ({N}) + tree depth ({D}) exceeds "
             f"max_position_embeddings ({limit}): tree nodes take rotary "
             f"positions up to pos + depth")
-    run, drun, caches, dcaches, token = _spec_setup(model, draft_model, ids,
-                                                    cfg, w)
+    run, drun, caches, dcaches, token, keys, params = _spec_setup(
+        model, draft_model, ids, cfg, w)
     pt = _plan_tensors(plan, ids.device)
     T = caches[0]["k"].shape[1]
     rows = torch.arange(B, device=ids.device)[:, None] * T
@@ -777,13 +1028,18 @@ def _generate_speculative_tree(model, draft_model, ids,
             [off[min(D, int(r) - 1) + 1] if r > 0 else 0
              for r in N - emitted], device=ids.device)
         pos_t = torch.from_numpy(pos.astype(np.int32)).to(ids.device)
+        levels, subs = (None, None) if params is None else \
+            split_key_levels(keys, D + 1)
         bundle = draft_tree(drun, lambda n: _with_tree(dcaches, plan, pt, n,
                                                        B),
-                            token, pos_t, plan)
+                            token, pos_t, plan, subs, params)
         logits, _ = run(bundle, _with_tree(caches, plan, pt, w, B), pos_t)
-        cand = logits.argmax(dim=-1)                    # [B, w]
+        cand = rows_select(logits, None if subs is None
+                           else subs[:, pt["depth_vec"].long()], params)
         n_emit, path, em, last = tree_accept(bundle, cand, spec_len, plan,
                                              pt)
+        if params is not None:
+            keys = _commit_keys(levels, n_emit)
         src, dst = path_commit(pos_t, path, n_emit)
         kv_path_move(caches + dcaches, rows + src, rows + dst)
         token = torch.where(n_emit > 0, last, token)
@@ -795,30 +1051,102 @@ def _generate_speculative_tree(model, draft_model, ids,
     return _finish_spec(ids, out, cfg)
 
 
+def _normalize_prompts(input_ids, pad_token_id, device):
+    """(ids [B, S] int64 on ``device``, pad_lens [B] int64 or None).
+
+    A [B, S] tensor or array holds equal-length prompts; a list of
+    per-row token sequences may be ragged, and its rows are LEFT-padded
+    with ``pad_token_id`` to the longest (``pad_lens`` counts each row's
+    pads). With an explicit ``pad_token_id`` a rectangular input is
+    ragged too: each row's leading run of pad ids is padding (at most
+    S - 1 of them; a pad id inside the prompt is content)."""
+    if isinstance(input_ids, (list, tuple)) and input_ids and \
+            isinstance(input_ids[0], (list, tuple, np.ndarray,
+                                      torch.Tensor)):
+        rows = [np.asarray(r, dtype=np.int64).reshape(-1) for r in input_ids]
+        lens = [r.shape[0] for r in rows]
+        if any(n == 0 for n in lens):
+            raise ValueError("empty prompt in ragged batch")
+        S = max(lens)
+        if len(set(lens)) > 1 and pad_token_id is None:
+            raise ValueError(
+                f"ragged prompts (lengths {sorted(set(lens))}) require "
+                f"pad_token_id for left-padding")
+        ids = np.full((len(rows), S), 0 if pad_token_id is None
+                      else pad_token_id, np.int64)
+        for b, r in enumerate(rows):
+            ids[b, S - r.shape[0]:] = r
+        pad_lens = None if pad_token_id is None else \
+            torch.tensor([S - n for n in lens], device=device)
+        return torch.from_numpy(ids).to(device), pad_lens
+    ids = torch.as_tensor(np.asarray(input_ids) if not isinstance(
+        input_ids, torch.Tensor) else input_ids).to(device=device,
+                                                     dtype=torch.long)
+    if ids.dim() != 2:
+        raise ValueError(f"input_ids must be [B, S], got {tuple(ids.shape)}")
+    if pad_token_id is None:
+        return ids, None
+    is_pad = (ids == pad_token_id).long()
+    pad_lens = torch.cumprod(is_pad, dim=1).sum(dim=1)
+    return ids, torch.clamp(pad_lens, max=ids.shape[1] - 1)
+
+
+def _pad_mask(pos: int, s: int, max_len: int, pad_lens):
+    """Additive fp32 [B, 1, s, max_len] mask of ``s`` queries at ``pos``:
+    causal over the cache and hiding each row's left pads (cache
+    positions below its pad count), for the prefill and every decode
+    step."""
+    kpos = torch.arange(max_len, device=pad_lens.device)
+    qpos = pos + torch.arange(s, device=pad_lens.device)
+    m = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < pos + s)
+    m = m[None] & (kpos[None, None, :] >= pad_lens[:, None, None])
+    zero = torch.zeros((), dtype=torch.float32, device=pad_lens.device)
+    neg = torch.full((), -1e30, dtype=torch.float32, device=pad_lens.device)
+    return torch.where(m[:, None], zero, neg)
+
+
 def generate(model, input_ids, max_new_tokens: int = 32,
              do_sample: bool = False, temperature: float = 1.0,
              top_k: int = 0, top_p: float = 1.0,
              eos_token_id: Optional[int] = None, seed: int = 0,
-             kv_format: str = "bf16", draft_model=None, spec_k: int = 4,
-             spec_tree=None):
-    """Greedy continuations of equal-length prompts ``input_ids`` [B, S];
-    returns [B, S + N] int64 on the model's device.
+             loop_mode: str = "scan", pad_token_id: Optional[int] = None,
+             stream: bool = False, draft_model=None, spec_k: int = 4,
+             spec_tree=None, kv_format: str = "bf16"):
+    """Continuations of the prompts ``input_ids`` [B, S]; returns
+    [B, S + N] int64 on the model's device.
 
     The prompt is prefilled in one cached forward, then one cached
-    forward per token. With ``eos_token_id`` the loop stops once every
-    row has emitted it, and everything after a row's first EOS is EOS
-    (the output keeps its [B, S + N] shape). ``kv_format="int8"`` /
-    ``"fp8"`` stores the KV cache quantized (per-token-per-head absmax
-    scales); the decode steps then run the quantized flash-decode
-    kernel.
+    forward per token. Greedy by default; with ``do_sample`` each token
+    is drawn with temperature / top-k / top-p on the key chain of
+    ``seed`` (``key, sub = split(key)`` before every token; the B rows
+    share one subkey per position, its counters running flat over
+    [B, V]), the reference's tokens bit for bit. With ``eos_token_id``
+    the loop stops once every row has emitted it, and everything after a
+    row's first EOS is EOS (the output keeps its [B, S + N] shape).
+    ``loop_mode`` ("scan" or "python") is accepted for the reference's
+    signature and has no effect: the port runs one loop either way.
+
+    Ragged prompts: a list of per-row token sequences (or a pre-padded
+    [B, S] batch) with ``pad_token_id``: rows are left-padded and a mask
+    hides the pads through the prefill and every decode step, so the
+    decode kernel declines (counted in ``DISPATCH_FALLBACKS``) and the
+    plain attention runs, as in the reference.
+
+    ``stream=True`` returns a generator of [B] int64 token tensors, one
+    per position as it lands (rows past their EOS yield EOS), that stops
+    once every row is done.
+
+    ``kv_format="int8"`` / ``"fp8"`` stores the KV cache quantized
+    (per-token-per-head absmax scales); the decode steps then run the
+    quantized flash-decode kernel.
 
     ``draft_model=`` decodes speculatively: the draft proposes
     ``spec_k`` tokens a round (``spec_k=0`` decodes plainly), or, with
     ``spec_tree=[4, 2, 2]``, a token tree of those branching factors;
     the target scores the bundle in one cached forward. The tokens equal
-    the plain path's. Not with a quantized ``kv_format`` (the serving
-    engine's speculative lanes run on quantized pools)."""
-    _no_sampling(do_sample)
+    the plain path's, greedy at any B and sampled at B = 1 (B > 1 rows
+    sample on their own ``fold_in`` chains). Not with a quantized
+    ``kv_format``, ``stream`` or ragged prompts."""
     _check_format(kv_format)
     if kv_format != "bf16" and draft_model is not None:
         raise ValueError(
@@ -829,11 +1157,7 @@ def generate(model, input_ids, max_new_tokens: int = 32,
     cfg = GenerationConfig(max_new_tokens, do_sample, temperature, top_k,
                            top_p, eos_token_id, seed)
     device = next(model.parameters()).device
-    ids = torch.as_tensor(np.asarray(input_ids) if not isinstance(
-        input_ids, torch.Tensor) else input_ids).to(device=device,
-                                                     dtype=torch.long)
-    if ids.dim() != 2:
-        raise ValueError(f"input_ids must be [B, S], got {tuple(ids.shape)}")
+    ids, pad_lens = _normalize_prompts(input_ids, pad_token_id, device)
     B, S = ids.shape
     config = model.config
     max_len = S + cfg.max_new_tokens
@@ -841,42 +1165,108 @@ def generate(model, input_ids, max_new_tokens: int = 32,
         raise ValueError(
             f"prompt ({S}) + max_new_tokens ({cfg.max_new_tokens}) exceeds "
             f"max_position_embeddings ({config.max_position_embeddings})")
+    if loop_mode not in ("scan", "python"):
+        raise ValueError(
+            f"loop_mode must be 'scan' or 'python', got {loop_mode!r}")
     if cfg.max_new_tokens <= 0:
-        return ids
+        return iter(()) if stream else ids
     if spec_tree is not None and draft_model is None:
         raise ValueError(
             "spec_tree requires draft_model: the tree nodes are drafted by "
             "the small model; pass draft_model= (e.g. "
             "generation.truncated_draft) or drop spec_tree")
     if draft_model is not None and (spec_tree is not None or spec_k >= 1):
+        if stream:
+            raise ValueError(
+                "stream=True is not supported with draft_model: the "
+                "speculative loop emits a variable number of tokens per "
+                "round; drop draft_model to stream")
+        if pad_lens is not None:
+            raise ValueError(
+                "draft_model is not supported with ragged/left-padded "
+                "prompts (pad_token_id): the speculative verify derives "
+                "its masking from positions only")
         with torch.no_grad():
             if spec_tree is not None:
                 return _generate_speculative_tree(model, draft_model, ids,
                                                   cfg, spec_tree)
             return _generate_speculative(model, draft_model, ids, cfg,
                                          spec_k)
-    dtype = next(model.parameters()).dtype
-    run = make_cached_runner(model)
-    caches = make_kv_caches(config, B, max_len, dtype, kv_format,
-                            device=device)
-    logits, caches = run(ids, caches, 0)
-    token = logits[:, -1].argmax(dim=-1)
-    out = [token]
-    eos = cfg.eos_token_id
-    done = token == eos if eos is not None else None
-    for i in range(1, cfg.max_new_tokens):
-        if done is not None and bool(done.all()):
-            break
-        logits, caches = run(token[:, None], caches, S + i - 1)
-        token = logits[:, 0].argmax(dim=-1)
-        out.append(token)
-        if done is not None:
-            done |= token == eos
-    gen = torch.stack(out, dim=1)
-    if eos is not None:
-        gen = _mask_after_eos(gen, eos)
-        if gen.shape[1] < cfg.max_new_tokens:
-            pad = torch.full((B, cfg.max_new_tokens - gen.shape[1]), eos,
-                             dtype=gen.dtype, device=device)
-            gen = torch.cat([gen, pad], dim=1)
+    tokens = _token_iter(model, ids, pad_lens, cfg, kv_format)
+    if stream:
+        return tokens
+    gen = torch.stack(list(tokens), dim=1)
+    if gen.shape[1] < cfg.max_new_tokens:       # every row hit EOS early
+        pad = torch.full((B, cfg.max_new_tokens - gen.shape[1]),
+                         cfg.eos_token_id, dtype=gen.dtype, device=device)
+        gen = torch.cat([gen, pad], dim=1)
     return torch.cat([ids, gen], dim=1)
+
+
+def _token_iter(model, ids, pad_lens, cfg: GenerationConfig, kv_format):
+    """The decode loop of ``generate``: yields the [B] token vector of
+    each position (EOS-masked), stopping once every row has emitted
+    EOS."""
+    B, S = ids.shape
+    max_len = S + cfg.max_new_tokens
+    run = make_cached_runner(model)
+    caches = make_kv_caches(model.config, B, max_len,
+                            next(model.parameters()).dtype, kv_format,
+                            device=ids.device)
+
+    def forward(tok, pos):
+        mask = None if pad_lens is None else \
+            _pad_mask(pos, tok.shape[1], max_len, pad_lens)
+        logits, _ = run(tok, caches, pos, attn_mask=mask)
+        return logits[:, -1]
+
+    key = prng.PRNGKey(cfg.seed, ids.device)
+    eos = cfg.eos_token_id
+    done = None
+    for i in range(cfg.max_new_tokens):
+        last = forward(ids, 0) if i == 0 else forward(token[:, None],
+                                                      S + i - 1)
+        sub = None
+        if cfg.do_sample:
+            key, sub = prng.split(key).unbind(0)
+        token = _select_token(last, cfg, sub)
+        if eos is not None:
+            if done is None:
+                done = torch.zeros(B, dtype=torch.bool, device=ids.device)
+            token = torch.where(done, torch.full_like(token, eos), token)
+            done |= token == eos
+        yield token
+        if done is not None and bool(done.all()):
+            return
+
+
+def generate_uncached(model, input_ids, max_new_tokens: int = 32,
+                      do_sample: bool = False, temperature: float = 1.0,
+                      top_k: int = 0, top_p: float = 1.0,
+                      eos_token_id: Optional[int] = None, seed: int = 0):
+    """Decode by re-running the whole uncached forward per token (the
+    fallback for models without KV-cache plumbing; O(n^2)). Same key
+    chain and selection as ``generate``, so its tokens equal
+    ``generate``'s up to the logits' rounding."""
+    cfg = GenerationConfig(max_new_tokens, do_sample, temperature, top_k,
+                           top_p, eos_token_id, seed)
+    device = next(model.parameters()).device
+    ids, _ = _normalize_prompts(input_ids, None, device)
+    S = ids.shape[1]
+    max_pos = getattr(model.config, "max_position_embeddings", None)
+    if max_pos is not None and S + cfg.max_new_tokens > max_pos:
+        raise ValueError(
+            f"prompt ({S}) + max_new_tokens ({cfg.max_new_tokens}) exceeds "
+            f"max_position_embeddings ({max_pos})")
+    key = prng.PRNGKey(cfg.seed, device)
+    with torch.no_grad():
+        for _ in range(cfg.max_new_tokens):
+            logits = model(ids)
+            key, sub = prng.split(key).unbind(0)
+            nxt = _select_token(logits[:, -1], cfg, sub)
+            ids = torch.cat([ids, nxt[:, None]], dim=1)
+    if cfg.eos_token_id is not None:
+        ids = torch.cat([ids[:, :S], _mask_after_eos(ids[:, S:],
+                                                     cfg.eos_token_id)],
+                        dim=1)
+    return ids

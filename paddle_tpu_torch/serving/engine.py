@@ -31,6 +31,17 @@ the worst-case length. On top of the pool:
   COW, chunked prefill and preemption drive both; rejected K/V is
   rolled back by position. A request opts out, or shrinks its draft,
   with ``SamplingParams.spec_k``.
+- sampled decode (``SamplingParams(do_sample=True, temperature, top_k,
+  top_p, seed)``): each slot carries its parameters and its threefry key
+  on the device. The final prefill chunk selects the first token with
+  ``split(PRNGKey(seed))``, every decode step splits every slot's key
+  once (``split_keys``) and runs the per-row sampler only when a slot in
+  the step samples; the speculative lanes draft and verify with the
+  chain walked ahead (``split_key_levels``) and commit one split per
+  emitted token. A slot's tokens are thus a function of (seed, params,
+  logits), the same as ``generation.generate``'s for one request, and a
+  preempted request resumes from its seed's chain walked back to the
+  token it re-derives.
 
 Each iteration runs the programs of the JAX engine as eager PyTorch: a
 prefill chunk (``_chunk``), one decode step for the whole slot pool
@@ -40,8 +51,9 @@ keep the JAX conventions: a zeroed block-table row, so their writes
 land in the dump block, and ``pos`` pinned to 0.
 
 The engine is driven synchronously (``submit`` + ``step`` /
-``run_until_idle``) and decodes greedily; outputs equal
-``generation.generate`` token for token, with speculation or without.
+``run_until_idle``); outputs equal ``generation.generate`` token for
+token (greedy, or sampled at B = 1 with the request's seed), with
+speculation or without.
 """
 
 from __future__ import annotations
@@ -53,12 +65,15 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import prng
 from ..device import resolve_device
-from ..generation import (_check_draft_vocab, _paged_flat_indices,
-                          _plan_tensors, _with_tree, draft_tree,
-                          kv_cache_bytes_per_token, kv_path_move,
+from ..generation import (_check_draft_vocab, _commit_keys,
+                          _paged_flat_indices, _plan_tensors, _with_tree,
+                          draft_tree, kv_cache_bytes_per_token, kv_path_move,
                           make_cached_runner, make_paged_kv_pools,
-                          path_commit, spec_accept_length, spec_tree_plan,
+                          path_commit, rows_select,
+                          select_tokens, spec_accept_length,
+                          spec_tree_plan, split_key_levels, split_keys,
                           tree_accept)
 from ..kernels.decode_attention import (MAX_PAGED_Q_LEN, MAX_SPEC_K,
                                         spec_tree_width,
@@ -205,6 +220,7 @@ class _PrefillJob:
     done: int                    # tokens already in the cache
     skip: int                    # 1 on resume: the final select re-derives
     #                              a token already delivered
+    key: torch.Tensor            # [2] chain key the final select splits
 
 
 class ServingEngine:
@@ -239,10 +255,19 @@ class ServingEngine:
         self._dtype = param.dtype
         self._run = make_cached_runner(model)
 
-        # per-slot decode state on the device: last token and the next
-        # cache write index
-        self._tokens = torch.zeros(B, dtype=torch.long, device=self.device)
-        self._pos = torch.zeros(B, dtype=torch.int32, device=self.device)
+        # per-slot decode state on the device: last token, the next cache
+        # write index, the PRNG chain key and the sampling parameters
+        # (set by the final prefill chunk); a host mirror of do_sample
+        # gates the sampler without reading the device
+        dev = self.device
+        self._tokens = torch.zeros(B, dtype=torch.long, device=dev)
+        self._pos = torch.zeros(B, dtype=torch.int32, device=dev)
+        self._keys = torch.zeros((B, 2), dtype=torch.long, device=dev)
+        self._ds = torch.zeros(B, dtype=torch.bool, device=dev)
+        self._temp = torch.ones(B, dtype=torch.float32, device=dev)
+        self._tk = torch.zeros(B, dtype=torch.long, device=dev)
+        self._tp = torch.ones(B, dtype=torch.float32, device=dev)
+        self._slot_sampling = np.zeros(B, bool)
 
         self._slot_req: List[Optional[Request]] = [None] * B
         self._decoding = [False] * B       # past prefill, in the step batch
@@ -322,12 +347,15 @@ class ServingEngine:
             [bt, np.zeros((bt.shape[0], pad), np.int32)], axis=1)
 
     def _chunk(self, bt_row, ids, pos0: int, valid: int, slot: int,
-               is_last: bool, last_idx: int) -> Optional[int]:
+               is_last: bool, last_idx: int, key=None,
+               params: Optional[SamplingParams] = None) -> Optional[int]:
         """ONE fixed-shape prefill chunk: forward ``ids`` [1, C] at
         ``pos0`` through the paged caches (pad tokens past ``valid`` write
         to the dump block; the write slots are computed once for all
-        layers). The last chunk selects the first token and
-        sets the slot's decode state; returns it, else None."""
+        layers). The last chunk selects the first token (argmax, or the
+        request's sampler with the subkey of ``split(key)``) and sets
+        the slot's decode state, its chain key and parameters included;
+        returns the token, else None."""
         slots = _paged_flat_indices(bt_row, pos0, valid,
                                     self.config.block_size, 1, ids.shape[1],
                                     self.device)
@@ -342,22 +370,50 @@ class ServingEngine:
         self._chunks += 1
         if not is_last:
             return None
-        token = logits[0, last_idx].argmax()
+        p = params if params is not None else SamplingParams()
+        last = logits[:, last_idx]
+        if p.do_sample:
+            key, sub = prng.split(key).unbind(0)
+            token = select_tokens(last, sub[None], [True], [p.temperature],
+                                  [p.top_k], [p.top_p])[0]
+            self._keys[slot] = key
+        else:
+            token = last[0].argmax()
         self._tokens[slot] = token
         self._pos[slot] = pos0 + valid
+        self._ds[slot] = bool(p.do_sample)
+        self._temp[slot] = float(p.temperature)
+        self._tk[slot] = int(p.top_k)
+        self._tp[slot] = float(p.top_p)
+        self._slot_sampling[slot] = bool(p.do_sample)
         return int(token)
 
-    def _step(self, bt, active):
+    def _sampler(self, active):
+        """The rows' sampling parameters (do_sample, temperature, top_k,
+        top_p) when a slot of ``active`` samples, else None:
+        pure-greedy steps skip the sampler and the key advance (greedy
+        rows never read their keys)."""
+        if not self._slot_sampling[active].any():
+            return None
+        return self._ds, self._temp, self._tk, self._tp
+
+    def _step(self, bt, active, params):
         """ONE decode iteration for the whole slot pool through the block
         tables ``bt`` [B, nb] (inactive rows zeroed: their writes land in
-        the dump block); free rows pinned to pos 0. Returns the [B]
-        next tokens on the device."""
+        the dump block); free rows pinned to pos 0. With sampling
+        ``params`` every slot's key splits once and the per-row sampler
+        selects with the subkeys. Returns the [B] next tokens on the
+        device."""
         slots = _paged_flat_indices(bt, self._pos, None,
                                     self.config.block_size, bt.shape[0], 1,
                                     self.device)
         caches = [dict(c, bt=bt, slots=slots) for c in self._pools]
         logits, _ = self._run(self._tokens[:, None], caches, self._pos)
-        nxt = logits[:, 0].argmax(dim=-1)
+        if params is None:
+            nxt = logits[:, 0].argmax(dim=-1)
+        else:
+            self._keys, subs = split_keys(self._keys)
+            nxt = rows_select(logits, subs[:, None], params)[:, 0]
         self._tokens = nxt
         self._pos = torch.where(
             active, torch.clamp(self._pos + 1, max=self.config.max_len - 1),
@@ -386,11 +442,6 @@ class ServingEngine:
             params = SamplingParams(**sampling)
         elif sampling:
             raise ValueError("pass params OR sampling kwargs, not both")
-        if params.do_sample:
-            raise NotImplementedError(
-                "do_sample=True: sampled decode comes with the sampled-decode "
-                "slice (the threefry key chain ported bit for bit); the "
-                "engine decodes greedily")
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         L = int(prompt.shape[0])
         if L < 1:
@@ -441,6 +492,7 @@ class ServingEngine:
         self._slot_blocks[slot] = []
         self._bt[slot, :] = 0
         self._slot_len[slot] = 0
+        self._slot_sampling[slot] = False
 
     def _free_slot(self, slot: int, status: str, outcome: str,
                    error: Optional[str] = None):
@@ -504,22 +556,29 @@ class ServingEngine:
         return best
 
     def _build_resume(self, slot: int):
-        """Resume state for the slot's occupant: mid-prefill restarts the
-        same chunk job; mid-decode folds the generated tokens but the last
-        into the next prefill, whose final select re-derives the last one
-        (skipped, never re-delivered)."""
+        """Seed-deterministic resume state for the slot's occupant:
+        mid-prefill restarts the same chunk job; mid-decode folds the
+        generated tokens but the last into the next prefill, with the
+        PRNG chain of the request's seed split g - 1 times (the key
+        before the last delivered token), so the resumed prefill's final
+        select re-derives that token (skipped, never re-delivered) and
+        the decode goes on bit-identical."""
         req = self._slot_req[slot]
         job = self._jobs[slot]
         if job is not None:
-            req._resume = (job.tokens, job.skip)
+            req._resume = (job.tokens, job.key, job.skip)
             return
         g = len(req.output_tokens)
         if g == 0:
             req._resume = None
             return
+        # greedy rows never read the key
+        key = prng.chain_key(req.params.seed,
+                             g - 1 if req.params.do_sample else 0,
+                             self.device)
         tokens = np.concatenate(
             [req.prompt, np.asarray(req.output_tokens[:g - 1], np.int32)])
-        req._resume = (tokens, 1)
+        req._resume = (tokens, key, 1)
 
     def _preempt(self, slot: int):
         """Preemption by recompute: release the slot's blocks and push its
@@ -552,7 +611,8 @@ class ServingEngine:
         """Claim the slot: match the prompt against the prefix cache,
         allocate the remaining prompt blocks, and queue the chunk job."""
         resume = req._resume
-        tokens, skip = resume if resume is not None else (req.prompt, 0)
+        tokens, key, skip = resume if resume is not None else (
+            req.prompt, prng.PRNGKey(req.params.seed, self.device), 0)
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         total = int(tokens.shape[0])
         bs = self.config.block_size
@@ -591,7 +651,7 @@ class ServingEngine:
         req.admitted_ts = now
         _sm.observe_queue_wait(wait)
         self._jobs[slot] = _PrefillJob(req=req, tokens=tokens, total=total,
-                                       done=matched_tok, skip=skip)
+                                       done=matched_tok, skip=skip, key=key)
         self._update_occupancy_gauges()
 
     def _advance_prefill(self, slot: int):
@@ -622,7 +682,7 @@ class ServingEngine:
             torch.from_numpy(self._padded_table(self._bt[slot:slot + 1], C))
             .to(self.device),
             torch.from_numpy(ids).to(self.device), start, end - start, slot,
-            is_last, job.total - 1 - start)
+            is_last, job.total - 1 - start, job.key, req.params)
         job.done = end
         _sm.inc("prefill_chunks_total")
         _sm.inc("tokens_total", end - start, label="prompt")
@@ -727,10 +787,12 @@ class ServingEngine:
         active_mask[active] = True
         bt_step = self._bt.copy()
         bt_step[~active_mask] = 0  # inactive rows -> dump block
+        params = self._sampler(active)
         if self.spec:
-            return self._spec_step(active, active_mask, bt_step)
+            return self._spec_step(active, active_mask, bt_step, params)
         toks = self._step(torch.from_numpy(bt_step).to(self.device),
-                          torch.from_numpy(active_mask).to(self.device))
+                          torch.from_numpy(active_mask).to(self.device),
+                          params)
         toks_np = toks.cpu().numpy()  # the step's one device->host sync
         now = time.perf_counter()
         _sm.inc("steps_total")
@@ -775,11 +837,13 @@ class ServingEngine:
                               bt.shape[0], bt=bt, slots=slots)
         return [dict(c, bt=bt, slots=slots) for c in pools]
 
-    def _draft_chain(self, bt, spec_valid):
+    def _draft_chain(self, bt, spec_valid, subs, params):
         """k cached draft forwards (q_len 1) proposing the bundle's draft
-        tokens, then a write-only forward of the last one (a full accept
-        advances past pos + k, whose draft K/V would otherwise be a
-        hole). Returns [B, k]."""
+        tokens, draft j with the chain subkey ``subs[:, j]`` the verify
+        selects position j with (common-noise coupling), then a
+        write-only forward of the last one (a full accept advances past
+        pos + k, whose draft K/V would otherwise be a hole). Returns
+        [B, k]."""
         k = self._spec_k
         tok, pos, drafts = self._tokens, self._pos, []
         for j in range(k + 1):
@@ -789,22 +853,27 @@ class ServingEngine:
                              torch.clamp(spec_valid - j, min=0), 1),
                 pos + j)
             if j < k:
-                tok = logits[:, 0].argmax(dim=-1)
+                tok = rows_select(logits, None if subs is None
+                                  else subs[:, j:j + 1], params)[:, 0]
                 drafts.append(tok)
         return torch.stack(drafts, dim=1)
 
-    def _verify(self, bt, drafts, spec_valid, active):
+    def _verify(self, bt, drafts, spec_valid, active, levels, subs, params):
         """ONE target forward over the [B, width] bundle (the paged
         kernel's q_len > 1 path; the tree lane under its ancestor mask),
-        the accept walk, and the state update: each row advances by its
-        own emit count. The tree lane then moves the accepted path's K/V
-        onto consecutive positions in both models' pools. Returns (the
-        emitted tokens [B, >= n_emit], n_emit [B])."""
+        each position selecting with its chain subkey (a tree node with
+        its depth's), the accept walk, and the state update: each row
+        advances by its own emit count and commits its chain at
+        ``levels[:, n_emit]``. The tree lane then moves the accepted
+        path's K/V onto consecutive positions in both models' pools.
+        Returns (the emitted tokens [B, >= n_emit], n_emit [B])."""
         pos = self._pos
         bundle = torch.cat([self._tokens[:, None], drafts], dim=1)
         logits, _ = self._run(bundle, self._caches(
             self._pools, bt, pos, spec_valid, bundle.shape[1]), pos)
-        cand = logits.argmax(dim=-1)
+        if subs is not None and self._spec_tree is not None:
+            subs = subs[:, self._tree_t["depth_vec"].long()]
+        cand = rows_select(logits, subs, params)
         if self._spec_tree is not None:
             n_emit, path, emitted, last = tree_accept(
                 bundle, cand, spec_valid, self._tree, self._tree_t)
@@ -821,6 +890,8 @@ class ServingEngine:
             n_emit = spec_accept_length(drafts, cand, spec_valid)
             emitted = cand
             last = cand.gather(1, (n_emit - 1).clamp(min=0)[:, None])[:, 0]
+        if levels is not None:
+            self._keys = _commit_keys(levels, n_emit)
         self._tokens = torch.where(n_emit > 0, last, self._tokens)
         self._pos = torch.where(
             active, torch.clamp(pos + n_emit, max=self.config.max_len - 1),
@@ -828,11 +899,12 @@ class ServingEngine:
         ).to(torch.int32)
         return emitted, n_emit
 
-    def _spec_step(self, active, active_mask, bt_step) -> bool:
+    def _spec_step(self, active, active_mask, bt_step, params) -> bool:
         """One speculative iteration for the whole pool: the draft (k
         forwards on the chain lane, depth + 1 on the tree lane; skipped
-        when no live row wants more than a plain step), then ONE verify.
-        Delivers each row's emitted tokens."""
+        when no live row wants more than a plain step), then ONE verify;
+        with sampling ``params`` both select with the chain walked
+        ahead. Delivers each row's emitted tokens."""
         B = self.config.max_slots
         spec_valid = np.zeros(B, np.int64)
         for i in active:
@@ -842,6 +914,10 @@ class ServingEngine:
         bt = torch.from_numpy(self._padded_table(bt_step, width)) \
             .to(self.device)
         sv = torch.from_numpy(spec_valid).to(self.device)
+        levels = subs = None
+        if params is not None:
+            # a token per level: k + 1 on the chain, depth + 1 on the tree
+            levels, subs = split_key_levels(self._keys, self._spec_k + 1)
         with torch.no_grad():
             if (spec_valid > 1).any():
                 if tree:
@@ -849,15 +925,17 @@ class ServingEngine:
                         self._drun,
                         lambda n: self._caches(self._dpools, bt, self._pos,
                                                torch.clamp(sv, max=n), n),
-                        self._tokens, self._pos, self._tree)[:, 1:]
+                        self._tokens, self._pos, self._tree, subs,
+                        params)[:, 1:]
                 else:
-                    drafts = self._draft_chain(bt, sv)
+                    drafts = self._draft_chain(bt, sv, subs, params)
                 self._spec_draft_rounds += 1
             else:
                 drafts = torch.zeros((B, width - 1), dtype=torch.long,
                                      device=self.device)
             emitted, n_emit = self._verify(
-                bt, drafts, sv, torch.from_numpy(active_mask).to(self.device))
+                bt, drafts, sv, torch.from_numpy(active_mask).to(self.device),
+                levels, subs, params)
         em_np = emitted.cpu().numpy()   # the round's device->host sync
         n_np = n_emit.cpu().numpy()
         now = time.perf_counter()

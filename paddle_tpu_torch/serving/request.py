@@ -34,9 +34,12 @@ class RequestStatus:
 
 @dataclass
 class SamplingParams:
-    """Per-request decode knobs, the surface of ``generation.generate``.
-    The port decodes greedily; ``do_sample=True`` is refused at submit
-    until the sampled-decode slice lands.
+    """Per-request decode knobs, the surface of ``generation.generate``
+    so outputs are comparable request for request: greedy by default;
+    with ``do_sample`` a draw with ``temperature`` / ``top_k`` (0: off) /
+    ``top_p`` (1.0: off) on the threefry key chain of ``seed``, the
+    tokens the JAX package's engine and a B = 1 ``generate`` with the
+    same seed give.
 
     ``spec_k`` is the per-request speculative override on a draft-model
     engine: ``None`` takes the engine's k, ``0`` opts the request out of

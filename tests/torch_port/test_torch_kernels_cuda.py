@@ -1,6 +1,8 @@
 """The CUDA kernels (flash decode K4-K8, its quantized decode step and
 its exact division, flash attention K1-K3, the quantized matmul K9 and
-the fused convs K10/K11) against their plain PyTorch versions, on a GPU.
+the fused convs K10/K11) against their plain PyTorch versions, on a GPU;
+and the sampler (threefry keys, bits, Gumbel draws, ``select_tokens``)
+on the card against the same code on the CPU.
 Skipped where CUDA is absent; on a GPU machine (which has no jax) run
 this file alone:
 
@@ -1153,3 +1155,89 @@ def test_div_bound_matches_ieee_division_everywhere(tmp_path):
         bad = ctypes.c_ulonglong(0)
         assert fn(fp8, ctypes.addressof(bad)) == 0
         assert bad.value == 0, ("fp8" if fp8 else "int8", bad.value)
+
+
+# ---------------------------------------------------------------------------
+# sampling: the same code on the card and on the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1])
+def test_prng_chain_on_the_card_equals_the_cpu(seed):
+    """Keys, splits, fold_in, bits and uniforms are integer work: equal
+    bit for bit; Gumbel draws within 2 ulp of max(|g|, 1)."""
+    require_cuda()
+    from paddle_tpu_torch import prng
+
+    keys = {}
+    for dev in ("cpu", "cuda"):
+        k, chain = prng.PRNGKey(seed, dev), []
+        for i in range(64):
+            k, sub = prng.split(k).unbind(0)
+            chain += [k, sub, prng.fold_in(k, i)]
+        keys[dev] = torch.stack(chain).cpu()
+    assert torch.equal(keys["cpu"], keys["cuda"])
+    k = prng.PRNGKey(seed)
+    for dtype in (torch.float32, torch.bfloat16):
+        u = prng.uniform(k, (8, 32000), dtype)
+        ug = prng.uniform(k.cuda(), (8, 32000), dtype).cpu()
+        assert torch.equal(u.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32),
+                           ug.view(torch.int16 if dtype == torch.bfloat16
+                                   else torch.int32))
+        g = prng.gumbel(k, (8, 32000), dtype).float()
+        gg = prng.gumbel(k.cuda(), (8, 32000), dtype).cpu().float()
+        ulp = torch.from_numpy(np.spacing(
+            np.maximum(g.abs().numpy(), 1.0).astype(np.float32)))
+        if dtype == torch.bfloat16:
+            ulp = ulp * 2.0 ** 16
+        assert bool(((g - gg).abs() <= 2 * ulp).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_select_tokens_on_the_card_equals_the_cpu(dtype):
+    """The grid of temperature x top_k x top_p with greedy rows mixed in,
+    over Llama-2-7B's vocabulary, integer logits tied across the 256th
+    value, and the static selector of plain ``generate``: equal
+    tokens."""
+    require_cuda()
+    import itertools
+
+    from paddle_tpu_torch import generation as tgen
+    from paddle_tpu_torch import prng
+
+    V = 32000
+    grid = list(itertools.product([0.7, 1.0, 1.3], [0, 1, 40, 256, 257, V],
+                                  [1.0, 0.9, 0.5]))
+    B = len(grid) + 4
+    rng = np.random.RandomState(12)
+    logits = torch.from_numpy((rng.randn(B, V) * 3).astype(np.float32)) \
+        .to(dtype)
+    ds = torch.tensor([True] * len(grid) + [False] * 4)
+    temp = torch.tensor([g[0] for g in grid] + [1.0] * 4)
+    tk = torch.tensor([g[1] for g in grid] + [0] * 4)
+    tp = torch.tensor([g[2] for g in grid] + [1.0] * 4)
+    keys = prng.fold_in(prng.PRNGKey(3), torch.arange(B))
+    args = (ds, temp, tk, tp)
+    want = tgen.select_tokens(logits, keys, *args)
+    got = tgen.select_tokens(logits.cuda(), keys.cuda(),
+                             *(a.cuda() for a in args)).cpu()
+    assert torch.equal(got, want)
+    # integer logits tied across the 256th value
+    tie = torch.from_numpy(np.round(rng.randn(6, V) * 2).astype(np.float32)) \
+        .to(dtype)
+    sub = (tie, keys[:6], torch.ones(6, dtype=torch.bool), torch.ones(6),
+           torch.tensor([256, 256, 250, 256, 200, 256]),
+           torch.tensor([0.9, 0.99, 0.5, 1.0, 0.95, 0.999]))
+    want = tgen.select_tokens(*sub)
+    got = tgen.select_tokens(*(a.cuda() for a in sub)).cpu()
+    assert torch.equal(got, want)
+    cfg = tgen.GenerationConfig(do_sample=True, temperature=0.8, top_k=40,
+                                top_p=0.9)
+    k = prng.PRNGKey(9)
+    assert torch.equal(tgen._select_token(logits[:8], cfg, k),
+                       tgen._select_token(logits[:8].cuda(), cfg,
+                                          k.cuda()).cpu())

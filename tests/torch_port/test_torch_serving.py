@@ -183,3 +183,67 @@ def test_explicit_pool_without_room_for_the_fork_refuses(num_blocks):
     jeng.run_until_idle(max_steps=50)
     assert jreq.status == "completed"
     assert list(req.output_tokens) == list(jreq.output_tokens)
+
+
+# mixed greedy and sampled requests (the JAX package's own serving
+# parity case): one engine, each request equal to a B = 1 generate with
+# its seed
+MIXED = [dict(max_new_tokens=6),
+         dict(max_new_tokens=8, do_sample=True, temperature=0.8, top_k=8,
+              seed=5),
+         dict(max_new_tokens=5, do_sample=True, top_p=0.9, seed=9),
+         dict(max_new_tokens=7),
+         dict(max_new_tokens=10, do_sample=True, temperature=1.2, top_k=12,
+              top_p=0.95, seed=3)]
+
+
+def test_mixed_greedy_and_sampled_requests_match_generate_and_jax():
+    jm, tm, cfg = tiny_pair(max_position_embeddings=256)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab_size, n) for n in (5, 9, 3, 17, 30)]
+    kw = dict(max_slots=3, max_len=64, max_queue_depth=16)
+    nb = tserving.ServingConfig(**kw).default_num_blocks()
+    outs = {}
+    for name, eng in (("jax", jserving.ServingEngine(jm, num_blocks=nb,
+                                                     **kw)),
+                      ("torch", tserving.ServingEngine(tm, device="cpu",
+                                                       **kw))):
+        reqs = [eng.submit(p, **s) for p, s in zip(prompts, MIXED)]
+        eng.run_until_idle(max_steps=500)
+        assert all(r.status == "completed" for r in reqs), name
+        outs[name] = [list(r.output_tokens) for r in reqs]
+    assert outs["torch"] == outs["jax"]
+    for p, s, got in zip(prompts, MIXED, outs["torch"]):
+        want = tm.generate(p[None], **s)[0, len(p):].tolist()
+        assert got == want, s
+    assert outs["torch"][1] != tm.generate(
+        prompts[1][None], max_new_tokens=8)[0, 9:].tolist()   # it sampled
+
+
+def test_sampled_request_preempted_mid_decode_resumes_bit_identical():
+    """An oversubscribed pool preempts the later-admitted, sampled request
+    while both decode; it resumes from its seed's chain walked back to
+    the token its resumed prefill re-derives: its tokens equal an
+    undisturbed B = 1 generate and the JAX engine's at the same pool
+    (where the JAX engine completes), and nothing is delivered twice."""
+    jm, tm, cfg = tiny_pair(max_position_embeddings=256)
+    rng = np.random.RandomState(13)
+    pa, pb = (rng.randint(1, cfg.vocab_size, n) for n in (10, 12))
+    sb = dict(max_new_tokens=30, do_sample=True, top_k=5, seed=7)
+    kw = dict(max_slots=2, max_len=64, block_size=8, num_blocks=10,
+              prefill_chunk=16)
+    outs = {}
+    for name, eng in (("jax", jserving.ServingEngine(jm, **kw)),
+                      ("torch", tserving.ServingEngine(tm, device="cpu",
+                                                       **kw))):
+        ra = eng.submit(pa, max_new_tokens=30)
+        rb = eng.submit(pb, **sb)
+        eng.run_until_idle(max_steps=2000)
+        assert ra.status == rb.status == "completed", name
+        assert rb.preempt_count > 0, name
+        assert len(ra.output_tokens) == len(rb.output_tokens) == 30, name
+        outs[name] = (list(ra.output_tokens), list(rb.output_tokens))
+    assert outs["torch"] == outs["jax"]
+    assert outs["torch"][0] == tm.generate(pa[None],
+                                           max_new_tokens=30)[0, 10:].tolist()
+    assert outs["torch"][1] == tm.generate(pb[None], **sb)[0, 12:].tolist()

@@ -32,7 +32,7 @@ from paddle_tpu_torch import serving as tserving
 from paddle_tpu_torch.kernels import decode_attention as tda
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                      load_paddle_tpu_state)
-from torch_parity import jax_state, tiny_pair
+from torch_parity import generate_case, jax_state, serve_cases, tiny_pair
 
 SEED = 20250805
 
@@ -305,3 +305,86 @@ def test_engine_chain_pool_without_room_for_the_fork(pair, num_blocks):
     assert jreq.status == "completed"
     assert list(req.output_tokens) == list(jreq.output_tokens) \
         == _plain(tm, prompt, 4, kv_format="int8")
+
+
+# greedy and sampled requests (the JAX package's spec-lane parity
+# cases) with a per-request opt-out and a shrunk draft among them
+SAMPLED_CASES = [
+    (5, dict(max_new_tokens=12)),
+    (37, dict(max_new_tokens=9, do_sample=True, temperature=0.8, top_k=8,
+              seed=3)),
+    (9, dict(max_new_tokens=15, do_sample=True, top_p=0.9, seed=4)),
+    (14, dict(max_new_tokens=20, spec_k=0)),
+    (7, dict(max_new_tokens=10, do_sample=True, temperature=1.2, top_k=12,
+             top_p=0.95, seed=6, spec_k=1)),
+]
+
+
+def test_engine_chain_sampled_matches_plain_and_jax(pair):
+    """The chain lane with sampled requests: the draft proposes with the
+    verify's subkeys and the chain commits one split per emitted token,
+    so every request equals the plain sampled engine, the JAX chain lane
+    and a B = 1 ``generate`` with its seed."""
+    jm, jd, tm, td, cfg = pair
+    prompts = _prompts(cfg, [n for n, _ in SAMPLED_CASES], SEED + 6)
+    kw = dict(max_slots=3, max_len=128, spec_k=4)
+    nb = tserving.ServingConfig(**kw).default_num_blocks()
+    want, jreqs = serve_cases(
+        jserving.ServingEngine(jm, draft_model=jd, num_blocks=nb, **kw),
+        prompts, SAMPLED_CASES)
+    got, reqs = serve_cases(
+        tserving.ServingEngine(tm, device="cpu", draft_model=td, **kw),
+        prompts, SAMPLED_CASES)
+    plain, _ = serve_cases(
+        tserving.ServingEngine(tm, device="cpu", max_slots=3, max_len=128),
+        prompts, SAMPLED_CASES)
+    assert got == want == plain
+    # the drafts too: per-request drafted and accepted counts
+    assert [(r.spec_drafted, r.spec_accepted) for r in reqs] == \
+        [(r.spec_drafted, r.spec_accepted) for r in jreqs]
+    for p, (_, c), g in zip(prompts, SAMPLED_CASES, got):
+        assert g == generate_case(tm, p, c)
+    assert reqs[3].spec_drafted == 0 and reqs[1].spec_drafted > 0
+
+
+def test_engine_chain_sampled_preempted_mid_speculation(pair):
+    """The later-admitted, sampled request is preempted while rounds are
+    multi-token wide; it resumes from its seed's chain walked back by its
+    emitted count and finishes bit-identical to ``generate`` and to the
+    JAX chain lane, with nothing delivered twice."""
+    jm, jd, tm, td, cfg = pair
+    pa, pb = _prompts(cfg, (10, 12), SEED + 13)
+    sb = dict(do_sample=True, top_k=5, seed=7)
+    kw = dict(max_slots=2, max_len=64, block_size=8, num_blocks=10,
+              spec_k=3)
+    outs = {}
+    for name, eng in (
+            ("jax", jserving.ServingEngine(jm, draft_model=jd, **kw)),
+            ("torch", tserving.ServingEngine(tm, device="cpu",
+                                             draft_model=td, **kw))):
+        ra = eng.submit(pa, max_new_tokens=30)
+        rb = eng.submit(pb, max_new_tokens=30, **sb)
+        eng.run_until_idle(max_steps=2000)
+        assert ra.status == rb.status == "completed", name
+        assert rb.preempt_count > 0, name
+        assert len(rb.output_tokens) == 30, name
+        outs[name] = [list(ra.output_tokens), list(rb.output_tokens)]
+    assert outs["torch"] == outs["jax"]
+    assert outs["torch"] == [_plain(tm, pa, 30), _plain(tm, pb, 30, **sb)]
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantized_sampled_chain_lane_equals_plain_engine(pair, fmt):
+    """Sampled requests on int8 and fp8 pools: the chain lane's tokens
+    equal the plain engine's on the same pools."""
+    jm, jd, tm, td, cfg = pair
+    cases = SAMPLED_CASES[1:3] + SAMPLED_CASES[4:]
+    prompts = _prompts(cfg, [n for n, _ in cases], SEED + 14)
+    kw = dict(max_slots=2, max_len=128, kv_format=fmt)
+    got, reqs = serve_cases(
+        tserving.ServingEngine(tm, device="cpu", draft_model=td, spec_k=3,
+                               **kw), prompts, cases)
+    plain, _ = serve_cases(tserving.ServingEngine(tm, device="cpu", **kw),
+                           prompts, cases)
+    assert got == plain
+    assert sum(r.spec_drafted for r in reqs) > 0

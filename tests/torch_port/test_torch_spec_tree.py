@@ -33,7 +33,7 @@ from paddle_tpu_torch import serving as tserving
 from paddle_tpu_torch.kernels import decode_attention as tda
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                      load_paddle_tpu_state)
-from torch_parity import jax_state, tiny_pair
+from torch_parity import generate_case, jax_state, serve_cases, tiny_pair
 
 SEED = 20250807
 ATOL = 1e-5
@@ -272,3 +272,113 @@ def test_verify_eligibility_reasons():
     assert tda.spec_verify_eligibility(3, torch.float16) == (False, "dtype")
     assert dict(tda.DISPATCH_FALLBACKS) == {"spec_tree_q_len": 1,
                                             "spec_dtype": 1}
+
+
+# greedy, top-k, top-p-only, an opt-out and a depth clamp (the JAX
+# package's tree-lane parity cases)
+SAMPLED_CASES = [
+    (5, dict(max_new_tokens=12)),
+    (37, dict(max_new_tokens=9, do_sample=True, temperature=0.8, top_k=8,
+              seed=3)),
+    (9, dict(max_new_tokens=15, do_sample=True, top_p=0.9, seed=4)),
+    (7, dict(max_new_tokens=10, spec_k=0)),
+    (6, dict(max_new_tokens=10, do_sample=True, temperature=1.2, top_k=12,
+             top_p=0.95, seed=6, spec_k=1)),
+]
+
+
+def test_engine_tree_sampled_matches_plain_and_jax(pair):
+    """Sampled children draw with their depth's chain subkey (branch 0)
+    or its ``fold_in`` by BFS index; every node verifies with its depth's
+    subkey. Each request equals the plain sampled engine, the JAX tree
+    lane and a B = 1 ``generate`` with its seed."""
+    jm, jd, tm, td, cfg = pair
+    rng = np.random.RandomState(SEED + 4)
+    prompts = [rng.randint(1, cfg.vocab_size, n) for n, _ in SAMPLED_CASES]
+    kw = dict(max_slots=3, max_len=128, spec_tree=[2, 2])
+    nb = tserving.ServingConfig(**kw).default_num_blocks()
+    want, jreqs = serve_cases(
+        jserving.ServingEngine(jm, draft_model=jd, num_blocks=nb, **kw),
+        prompts, SAMPLED_CASES)
+    got, reqs = serve_cases(
+        tserving.ServingEngine(tm, device="cpu", draft_model=td, **kw),
+        prompts, SAMPLED_CASES)
+    plain, _ = serve_cases(
+        tserving.ServingEngine(tm, device="cpu", max_slots=3, max_len=128),
+        prompts, SAMPLED_CASES)
+    assert got == want == plain
+    # the drafts too: per-request drafted and accepted counts
+    assert [(r.spec_drafted, r.spec_accepted) for r in reqs] == \
+        [(r.spec_drafted, r.spec_accepted) for r in jreqs]
+    for p, (_, c), g in zip(prompts, SAMPLED_CASES, got):
+        assert g == generate_case(tm, p, c)
+    assert reqs[3].spec_drafted == 0 and reqs[1].spec_drafted > 0
+
+
+def test_engine_tree_sampled_preempted_mid_speculation(pair):
+    jm, jd, tm, td, cfg = pair
+    rng = np.random.RandomState(SEED + 8)
+    pa, pb = rng.randint(1, cfg.vocab_size, 10), \
+        rng.randint(1, cfg.vocab_size, 12)
+    sb = dict(max_new_tokens=30, do_sample=True, top_k=5, seed=7)
+    kw = dict(max_slots=2, max_len=64, block_size=8, num_blocks=10,
+              spec_tree=[2, 2])
+    outs = {}
+    for name, eng in (
+            ("jax", jserving.ServingEngine(jm, draft_model=jd, **kw)),
+            ("torch", tserving.ServingEngine(tm, device="cpu",
+                                             draft_model=td, **kw))):
+        ra = eng.submit(pa, max_new_tokens=30)
+        rb = eng.submit(pb, **sb)
+        eng.run_until_idle(max_steps=2000)
+        assert ra.status == rb.status == "completed", name
+        assert rb.preempt_count > 0, name
+        assert len(rb.output_tokens) == 30, name
+        outs[name] = [list(ra.output_tokens), list(rb.output_tokens)]
+    assert outs["torch"] == outs["jax"]
+    assert outs["torch"] == [generate_case(tm, pa, dict(max_new_tokens=30)),
+                             generate_case(tm, pb, sb)]
+
+
+def test_sampled_children_draw_like_the_reference():
+    """A level's sampled children: branch 0 of each node draws with the
+    level's chain subkey, branch r > 0 with ``fold_in(subkey, BFS
+    index)``, over the node's logits repeated per branch; greedy rows
+    keep their greedy children. Built here from jax.random and the JAX
+    package's ``select_tokens`` (the reference engine's ``_samp``)."""
+    import jax
+    import jax.numpy as jnp
+
+    B, n, f, first, V = 3, 2, 2, 3, 256
+    rng = np.random.RandomState(SEED + 9)
+    lvl = (rng.randn(B, n, V) * 2).astype(np.float32)
+    base = jax.vmap(lambda r: jax.random.fold_in(jax.random.PRNGKey(5), r))(
+        jnp.arange(B, dtype=jnp.uint32))
+    ds = np.array([True, False, True])
+    temp = np.array([0.8, 1.0, 1.2], np.float32)
+    tk = np.array([8, 0, 0], np.int32)
+    tp = np.array([1.0, 1.0, 0.9], np.float32)
+    w = n * f
+    gidx = first + jnp.arange(w, dtype=jnp.uint32)
+    folded = jax.vmap(lambda kk: jax.vmap(
+        lambda g: jax.random.fold_in(kk, g))(gidx))(base)
+    keys = jnp.where(((jnp.arange(w) % f) == 0)[None, :, None],
+                     jnp.broadcast_to(base[:, None], (B, w, 2)), folded)
+
+    def rep(x):
+        return jnp.repeat(jnp.asarray(x), w)
+
+    want = np.array(jgen.select_tokens(
+        jnp.repeat(jnp.asarray(lvl), f, axis=1).reshape(B * w, V),
+        keys.reshape(B * w, 2), rep(ds), rep(temp), rep(tk),
+        rep(tp))).reshape(B, w)
+    greedy = tgen.tree_children(torch.from_numpy(lvl), f)
+    want[~ds] = greedy.numpy()[~ds]
+    params = (torch.from_numpy(ds), torch.from_numpy(temp),
+              torch.from_numpy(tk).long(), torch.from_numpy(tp))
+    got = tgen.sampled_children(torch.from_numpy(lvl), f, first,
+                                torch.from_numpy(np.array(base)
+                                                 .astype(np.int64)),
+                                params, greedy)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not np.array_equal(got.numpy()[0, ::2], got.numpy()[0, 1::2])

@@ -37,3 +37,20 @@ def tiny_pair(**overrides):
     tm = LlamaForCausalLM(tcfg, device="cpu")
     load_paddle_tpu_state(tm, jax_state(jm))
     return jm, tm, jcfg
+
+
+def serve_cases(eng, prompts, cases):
+    """Submit each prompt with its case's request parameters (``cases``:
+    (prompt length, params) pairs), run the engine until idle; returns
+    (the token lists, the requests)."""
+    reqs = [eng.submit(p, **kw) for p, (_, kw) in zip(prompts, cases)]
+    eng.run_until_idle(max_steps=2000)
+    assert all(r.status == "completed" for r in reqs)
+    return [list(r.output_tokens) for r in reqs], reqs
+
+
+def generate_case(model, prompt, params):
+    """The port's B = 1 ``generate`` of ``prompt`` with a request's
+    parameters (its ``spec_k`` belongs to the engine)."""
+    kw = {k: v for k, v in params.items() if k != "spec_k"}
+    return model.generate(prompt[None], **kw)[0, len(prompt):].tolist()
