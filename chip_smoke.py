@@ -200,10 +200,43 @@ Phases, each printing JSON lines (and failing loudly on any check):
    seq 256 in fp32, three steps on the card and three on the CPU (plain
    versions) from the same weights: losses agree to rtol 1e-4, every
    weight within lr and their mean difference within 1e-3 * lr.
-8. ``kernels``: one summary object per kernel (K1-K11; K8 and its
+8. GPT-3 1.3B (``GPTConfig.gpt3_1p3b``: 24 layers of 16 heads of 128,
+   hidden 2048, vocab 50304; biased linears, learned positions, pre-LN,
+   tanh GELU), after the training phases; each phase prints its
+   seconds. ``gpt_kernel``: K4-K8 at its shapes (B 8 at the traffic's
+   first eight row lengths, max_len 2048, group 1): the decode step
+   over bf16 and int8 storage (K4, K5 contiguous; K6, K7 paged), the
+   256-token chunk (K6, K7) and the [2, 2] verify bundle (K8 over bf16
+   and int8 pools); K9 at its four linear shapes (2048 x 2048, 8192 x
+   2048, 2048 x 8192, 50304 x 2048) at M 8 and 256, int8 and fp8; each
+   row against its plain version with the ``kernel`` rows' tolerances,
+   with the kernel's, the plain version's and the library call's times
+   and the bound. ``gpt_serve``: the model in bf16 from seeded weights
+   (linear and embedding N(0, 0.02), LayerNorm weights one, biases
+   zero; 1,418,842,112 parameters, 196,608 KV bytes a token) through
+   the ``serve`` engine over ``TRAFFIC`` (K6 exactly 24 a decode step
+   and 24 a chunk, by body, no paged fallback; tokens/s), ``generate``
+   on two prompts (K4), a ``profile`` line of its decode iteration, the
+   first eight requests (32 new tokens each) sampled (``sample_params``)
+   and through the chain (k 4) and tree [2, 2] lanes with
+   ``truncated_draft(target, 2)`` (``serve_spec`` lines, launch counts
+   exact), then the same weights converted to int8 (biases kept) over
+   int8 KV: the traffic (K7 and K9 exactly: 145 products a forward) and
+   ``generate(kv_format="int8")`` (K5). ``gpt_parity``: fp32 at full
+   width and depth 2, the same weights on the card and the CPU:
+   tokens equal for the engine, ``generate``, the chain and tree lanes
+   (drafted and accepted counts too), an int8 engine and a sampled
+   engine; the C1 edge at ``max_position_embeddings`` 64 = max_len (the
+   last chunk's pad tokens past the learned table; card engine = CPU
+   engine = card ``generate``, every logit finite); then fp32 at full
+   depth on the card: the engine's tokens on four requests pass the
+   teacher-forced check against the card's no-cache forward.
+9. ``kernels``: one summary object per kernel (K1-K11; K8 and its
    quantized variant, K10 with and without its ReLU, K11 with and
    without its prologue separately); K6 and K7 add their 256-token
-   chunk and K8 its [4, 2, 2] verify under ``bundle``; then the card's
+   chunk and K8 its [4, 2, 2] verify under ``bundle``; the decode
+   kernels and K9 add ``gpt_launches`` (the GPT path's runs) and
+   ``gpt`` (the row at GPT-3 1.3B's shape); then the card's
    nvidia-smi line;
    the last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -1047,10 +1080,12 @@ def serve_phase(model, cfg, requests, kind, strict):
 PROFILE_SAMPLING = dict(do_sample=True, top_p=0.9)
 
 
-def profile_phase(model, requests, kind, kv_format="bf16", sampled=False):
+def profile_phase(model, requests, kind, kv_format="bf16", sampled=False,
+                  model_name="llama2_7b", windows=(2, 10)):
     """Where a serving iteration's time goes: the first eight requests on
-    a default engine, one window of prefill iterations (every slot runs a
-    256-token chunk) and one of pure decode steps. Wall time per
+    a default engine, one window of ``windows[0]`` prefill iterations
+    (every slot runs a 256-token chunk; none for 0) and one of
+    ``windows[1]`` pure decode steps. Wall time per
     iteration is taken without the profiler; device time per iteration
     (the sum of kernel times on the card) from a torch.profiler trace of
     the same number of iterations. ``sampled``: then the same eight
@@ -1073,17 +1108,19 @@ def profile_phase(model, requests, kind, kv_format="bf16", sampled=False):
     def window(n):
         return device_window(eng.step, n)
 
-    prefill = window(2)
-    while any(j is not None for j in eng._jobs):
+    prefill = window(windows[0]) if windows[0] else None
+    # through the prompts' prefill (their admission too, when no prefill
+    # window ran)
+    while eng.scheduler.depth or any(j is not None for j in eng._jobs):
         eng.step()
-    decode = window(10)
+    decode = window(windows[1])
     weights = next((m.fmt for m in model.modules() if hasattr(m, "fmt")),
                    "bfloat16")
     top = [k for k, _ in decode["top_device_ms"]]
     check(any("flash_decode_qrows" in k for k in top),
           f"{kv_format} decode iteration: flash_decode_qrows is not "
           f"among its top kernels {top}")
-    emit({"phase": "profile", "model": "llama2_7b", "dtype": "bfloat16",
+    emit({"phase": "profile", "model": model_name, "dtype": "bfloat16",
           "weights": weights, "kv_format": kv_format,
           "slots": 8, "prefill_iteration": prefill,
           "decode_iteration": decode, "card": kind})
@@ -1106,7 +1143,7 @@ def profile_phase(model, requests, kind, kv_format="bf16", sampled=False):
             select_tokens(logits, subs, *params)
 
         smp = device_window(sampler, 10)
-        emit({"phase": "profile", "model": "llama2_7b", "dtype": "bfloat16",
+        emit({"phase": "profile", "model": model_name, "dtype": "bfloat16",
               "weights": weights, "kv_format": kv_format, "slots": 8,
               "sampling": PROFILE_SAMPLING, "decode_iteration": sdecode,
               "greedy_decode_iteration": decode, "sampler": smp,
@@ -1119,10 +1156,11 @@ def profile_phase(model, requests, kind, kv_format="bf16", sampled=False):
     return decode
 
 
-def generate_phase(model, cfg, requests, kind, strict):
+def generate_phase(model, cfg, requests, kind, strict, tags=None):
     """``generate`` on two equal-length prompts: the contiguous kernel
     serves every decode step (the 200-token prefill is declined for
-    q_len and runs the plain attention)."""
+    q_len and runs the plain attention). ``tags`` are added to the
+    row."""
     import torch
 
     from paddle_tpu_torch.generation import generate
@@ -1149,7 +1187,8 @@ def generate_phase(model, cfg, requests, kind, strict):
                  {f"flash_decode_attention/{step}": expect})
     row = {"phase": "generate", "dtype": dname, "B": 2, "prompt_len": S,
            "new_tokens": N, "seconds": secs, "tokens_per_s": 2 * N / secs,
-           "kernel_launches": launches, "fallbacks": fallbacks, "card": kind}
+           "kernel_launches": launches, "fallbacks": fallbacks, "card": kind,
+           **(tags or {})}
     row.update(_teacher_forced_all(model, prompts,
                                    [out[b, S:].tolist() for b in range(2)],
                                    f"{dname} generate", strict))
@@ -1597,7 +1636,7 @@ def expected_spec_bodies(L, Ld, overrides, st, quant):
 
 
 def spec_lane(model, draft, requests, label, overrides, plain, kind,
-              quant=False, params=None):
+              quant=False, params=None, model_name="llama2_7b"):
     """One speculative lane over the traffic: every request completes with
     its token count, the launch counts are exact (``expected_spec_launches``)
     with no fallback; reports tokens/s beside the plain engine's of the
@@ -1633,7 +1672,7 @@ def spec_lane(model, draft, requests, label, overrides, plain, kind,
         check(st["preemptions"] >= 1, f"{tag}: engine never preempted")
     outputs = [list(r.output_tokens) for r in reqs]
     gen = sum(len(t) for t in outputs)
-    row = {"phase": "serve_spec", "lane": label, "model": "llama2_7b",
+    row = {"phase": "serve_spec", "lane": label, "model": model_name,
            "draft": f"truncated_draft(target, {draft.config.num_hidden_layers})",
            "dtype": "bfloat16", "weights": "int8" if quant else "bfloat16",
            "kv_format": "int8" if quant else "bf16",
@@ -2361,6 +2400,71 @@ def qmm_bound(M, N, K, isz, dname):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def qmm_rows(N, K, Ms, dtype, fmt, g, **tags):
+    """K9 against its plain version for one (N, K) weight at each M of
+    ``Ms``: the kernel's, the plain version's and the library
+    yardstick's times, the bound and the body (with its plan). ``tags``
+    are added to each row (``phase`` among them overrides "kernel")."""
+    import torch
+
+    from paddle_tpu_torch.kernels import quant_matmul as qm
+    from paddle_tpu_torch.quantization.intx import format_bound, pack_absmax
+
+    dev = torch.device(DEV)
+    dname = str(dtype).split(".")[-1]
+    isz = torch.empty((), dtype=dtype).element_size()
+    rows = []
+    wf = torch.randn(N, K, device=dev, generator=g)
+    amax = wf.abs().amax(dim=1)
+    w = pack_absmax(wf, amax[:, None], fmt)
+    scale = amax / format_bound(fmt)
+    wd = (w.to(dtype).float() * scale[:, None]).to(dtype)
+    del wf
+    # timed launches cycle through copies of the weight that together
+    # exceed the L2, as the decode step's many different weights do
+    ws = [w] + [w.clone() for _ in range(
+        -(-2 * L2_BYTES // w.numel()) - 1)]
+    wds = [wd] + [wd.clone() for _ in range(
+        -(-2 * L2_BYTES // (wd.numel() * isz)) - 1)]
+    iw, iwd = itertools.cycle(ws), itertools.cycle(wds)
+    for M in Ms:
+        # outputs near unit scale: atol covers a last-place flip
+        x = (torch.randn(M, K, device=dev, generator=g)
+             * (0.5 / K ** 0.5)).to(dtype)
+        run = lambda: qm.quant_matmul(x, next(iw), scale)  # noqa: E731
+        plain = lambda: qm.quant_matmul_ref(x, w, scale)  # noqa: E731
+        lib = lambda: torch.matmul(x, next(iwd).t())  # noqa: E731
+        got = qm.quant_matmul(x, w, scale)
+        want = plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        bound, bound_by = qmm_bound(M, N, K, isz, dname)
+        body = qm.qmm_body(M, dtype)
+        plan = None
+        if body == "wgmma":
+            plan = qm.qmm_plan(M, N, K, qm._sm_count(dev))
+        elif dtype == torch.bfloat16:
+            plan = qm.gemv_plan(M, N, K, qm._sm_count(dev))
+        row = {"phase": "kernel", "name": "quant_matmul",
+               "weight_format": fmt, "dtype": dname, "M": M,
+               "N": N, "K": K, "body": body, "plan": plan,
+               "max_abs_err": err,
+               "atol": ATOL[dname], "ok": err <= ATOL[dname],
+               "ms": cuda_ms(run, 50),
+               "plain_ms": cuda_ms(plain, 5),
+               "library_ms": cuda_ms(lib, 20),
+               "library": "torch.matmul(x, dequantized W.T)",
+               "bound_ms": bound, "bound_by": bound_by}
+        row["bound_share"] = bound / row["ms"]
+        row.update(tags)
+        emit(row)
+        rows.append(row)
+        check(row["ok"], f"quant_matmul disagrees with its plain "
+                         f"version: {json.dumps(row)}")
+    del w, wd, ws, wds
+    return rows
+
+
 def quant_matmul_phase():
     """K9 against its plain version at Llama-2-7B's linear shapes, a
     decode step (M 8), the verify bundles (M 56, 232) and prefill chunks
@@ -2370,65 +2474,12 @@ def quant_matmul_phase():
     product K9 replaces."""
     import torch
 
-    from paddle_tpu_torch.kernels import quant_matmul as qm
-    from paddle_tpu_torch.quantization.intx import format_bound, pack_absmax
-
-    dev = torch.device(DEV)
-    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    g = torch.Generator(device=torch.device(DEV)).manual_seed(SEED + 3)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype).split(".")[-1]
-        isz = torch.empty((), dtype=dtype).element_size()
         for fmt in QUANT_FORMATS:
             for N, K in QMM_SHAPES:
-                wf = torch.randn(N, K, device=dev, generator=g)
-                amax = wf.abs().amax(dim=1)
-                w = pack_absmax(wf, amax[:, None], fmt)
-                scale = amax / format_bound(fmt)
-                wd = (w.to(dtype).float() * scale[:, None]).to(dtype)
-                del wf
-                # timed launches cycle through copies of the weight that
-                # together exceed the L2, as the decode step's 225
-                # different weights do
-                ws = [w] + [w.clone() for _ in range(
-                    -(-2 * L2_BYTES // w.numel()) - 1)]
-                wds = [wd] + [wd.clone() for _ in range(
-                    -(-2 * L2_BYTES // (wd.numel() * isz)) - 1)]
-                iw, iwd = itertools.cycle(ws), itertools.cycle(wds)
-                for M in QMM_M:
-                    # outputs near unit scale: atol covers a last-place flip
-                    x = (torch.randn(M, K, device=dev, generator=g)
-                         * (0.5 / K ** 0.5)).to(dtype)
-                    run = lambda: qm.quant_matmul(x, next(iw), scale)  # noqa
-                    plain = lambda: qm.quant_matmul_ref(x, w, scale)  # noqa
-                    lib = lambda: torch.matmul(x, next(iwd).t())  # noqa
-                    got = qm.quant_matmul(x, w, scale)
-                    want = plain()
-                    torch.cuda.synchronize()
-                    err = (got.float() - want.float()).abs().max().item()
-                    bound, bound_by = qmm_bound(M, N, K, isz, dname)
-                    body = qm.qmm_body(M, dtype)
-                    plan = None
-                    if body == "wgmma":
-                        plan = qm.qmm_plan(M, N, K, qm._sm_count(dev))
-                    elif dtype == torch.bfloat16:
-                        plan = qm.gemv_plan(M, N, K, qm._sm_count(dev))
-                    row = {"phase": "kernel", "name": "quant_matmul",
-                           "weight_format": fmt, "dtype": dname, "M": M,
-                           "N": N, "K": K, "body": body, "plan": plan,
-                           "max_abs_err": err,
-                           "atol": ATOL[dname], "ok": err <= ATOL[dname],
-                           "ms": cuda_ms(run, 50),
-                           "plain_ms": cuda_ms(plain, 5),
-                           "library_ms": cuda_ms(lib, 20),
-                           "library": "torch.matmul(x, dequantized W.T)",
-                           "bound_ms": bound, "bound_by": bound_by}
-                    row["bound_share"] = bound / row["ms"]
-                    emit(row)
-                    rows.append(row)
-                    check(row["ok"], f"quant_matmul disagrees with its plain "
-                                     f"version: {json.dumps(row)}")
-                del w, wd, ws, wds
+                rows += qmm_rows(N, K, QMM_M, dtype, fmt, g)
     torch.cuda.empty_cache()
     return rows
 
@@ -2482,6 +2533,52 @@ def model_bytes(model):
                for t in list(model.parameters()) + list(model.buffers()))
 
 
+def linears_per_layer(model):
+    """Weight-only quantized linears a decoder layer of a converted model
+    (Llama 7, GPT 6; the lm_head is the one left over)."""
+    from paddle_tpu_torch.nn.quant import WeightOnlyLinear
+
+    n = sum(isinstance(m, WeightOnlyLinear) for m in model.modules())
+    return (n - 1) // model.config.num_hidden_layers
+
+
+def check_quant_serve(tag, model, requests, reqs, st, launches, fallbacks,
+                      bodies, qmm, qmm_bodies, qmm_fb):
+    """A quantized engine's run: every request completes with its token
+    count; K7 launches exactly layers x (decode steps + prefill chunks),
+    by body exactly (chunks on ``mma``, decode steps on ``qrows``), the
+    unquantized paged kernel never; K9 exactly (linears a layer x layers
+    + the lm_head) x forwards, chunks on ``wgmma`` and decode steps on
+    the GEMV; no fallback. Returns the bodies."""
+    L = model.config.num_hidden_layers
+    per_forward = linears_per_layer(model) * L + 1
+    for r, (p, m) in zip(reqs, requests):
+        check(r.status == "completed" and len(r.output_tokens) == m,
+              f"{tag}: request {r} did not complete with {m} tokens")
+    forwards = st["steps"] + st["prefill_chunks"]
+    k7 = launches["paged_flash_decode_attention_quant"]
+    check(k7 == L * forwards,
+          f"{tag}: K7 launched {k7} times, expected {L} x ({st['steps']} "
+          f"steps + {st['prefill_chunks']} chunks) = {L * forwards}")
+    check(launches["paged_flash_decode_attention"] == 0,
+          f"{tag}: the unquantized paged kernel ran: {launches}")
+    bodies = check_bodies(tag, bodies, {
+        "paged_flash_decode_attention_quant/mma": L * st["prefill_chunks"],
+        "paged_flash_decode_attention_quant/qrows": L * st["steps"]})
+    check(not fallbacks, f"{tag}: attention fallbacks {fallbacks}")
+    check(qmm["quant_matmul"] == per_forward * forwards,
+          f"{tag}: K9 launched {qmm['quant_matmul']} times, expected "
+          f"{per_forward} x {forwards} forwards")
+    check(not qmm_fb, f"{tag}: quant_matmul fallbacks {qmm_fb}")
+    # every prefill chunk's products (M 256) on the wgmma body, every
+    # decode step's (M 8) on the GEMV
+    want = {"quant_matmul/wgmma": per_forward * st["prefill_chunks"],
+            "quant_matmul/gemv": per_forward * st["steps"]}
+    check(qmm_bodies == {k: v for k, v in want.items() if v},
+          f"{tag}: K9 bodies {qmm_bodies}, expected exactly {want}")
+    return bodies
+
+
 def serve_quant_phase(cfg, requests, bf16_outputs, bf16_tps, kind):
     """Llama-2-7B (the bf16 serve's seeded weights) converted by
     ``convert_for_serving`` to int8, served with int8 KV blocks over the
@@ -2501,8 +2598,6 @@ def serve_quant_phase(cfg, requests, bf16_outputs, bf16_tps, kind):
     from paddle_tpu_torch.kernels import quant_matmul as qm
     from paddle_tpu_torch.quantization import convert_for_serving
 
-    L = cfg.num_hidden_layers
-    per_forward = 7 * L + 1          # q/k/v/o, gate/up/down, and lm_head
     result = {}
     for fmt, n_req in (("int8", len(requests)), ("fp8", 4)):
         reqs_in = requests[:n_req]
@@ -2525,31 +2620,9 @@ def serve_quant_phase(cfg, requests, bf16_outputs, bf16_tps, kind):
         st = eng.stats()
         peak = torch.cuda.max_memory_allocated()
         tag = f"{fmt} serve"
-        for r, (p, m) in zip(reqs, reqs_in):
-            check(r.status == "completed" and len(r.output_tokens) == m,
-                  f"{tag}: request {r} did not complete with {m} tokens")
-        forwards = st["steps"] + st["prefill_chunks"]
-        k7 = launches["paged_flash_decode_attention_quant"]
-        check(k7 == L * forwards,
-              f"{tag}: K7 launched {k7} times, expected {L} x ({st['steps']} "
-              f"steps + {st['prefill_chunks']} chunks) = {L * forwards}")
-        check(launches["paged_flash_decode_attention"] == 0,
-              f"{tag}: the unquantized paged kernel ran: {launches}")
-        bodies = check_bodies(tag, bodies, {
-            "paged_flash_decode_attention_quant/mma":
-                L * st["prefill_chunks"],
-            "paged_flash_decode_attention_quant/qrows": L * st["steps"]})
-        check(not fallbacks, f"{tag}: attention fallbacks {fallbacks}")
-        check(qmm["quant_matmul"] == per_forward * forwards,
-              f"{tag}: K9 launched {qmm['quant_matmul']} times, expected "
-              f"{per_forward} x {forwards} forwards")
-        check(not qmm_fb, f"{tag}: quant_matmul fallbacks {qmm_fb}")
-        # every prefill chunk's products (M 256) on the wgmma body, every
-        # decode step's (M 8) on the GEMV
-        want = {"quant_matmul/wgmma": per_forward * st["prefill_chunks"],
-                "quant_matmul/gemv": per_forward * st["steps"]}
-        check(qmm_bodies == {k: v for k, v in want.items() if v},
-              f"{tag}: K9 bodies {qmm_bodies}, expected exactly {want}")
+        bodies = check_quant_serve(tag, model, reqs_in, reqs, st, launches,
+                                   fallbacks, bodies, qmm, qmm_bodies,
+                                   qmm_fb)
         outputs = [list(r.output_tokens) for r in reqs]
         gen = sum(len(t) for t in outputs)
         kb = st["kv_blocks"]
@@ -2742,6 +2815,494 @@ def quant_parity_phase(kind):
           f"the fp32 card engine did not run K7 and K9: {counts['cuda']}")
     del gpu, cpu
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# GPT-3 1.3B: K4-K9 at GPT's shapes, its serving lanes, card against CPU
+# ---------------------------------------------------------------------------
+
+# the served GPT model's decode rows: the first eight prompts of TRAFFIC,
+# every slot taken (the engine's row lengths at the first decode step)
+GPT_ROWS = tuple(n for n, _, _ in TRAFFIC[:8])
+# GPT-3 1.3B's (N, K) of q/k/v/out_proj, fc_in, fc_out and lm_head
+GPT_QMM_SHAPES = ((2048, 2048), (8192, 2048), (2048, 8192), (50304, 2048))
+# the decode kernels at GPT's shapes: (kernel, paged, KV storage, q_len,
+# draft tree); q_len 256 is a prefill chunk (B 1, at 1280: the last chunk
+# of the 1500-token prompt)
+GPT_ATTENTION = (
+    ("flash_decode_attention", False, "bf16", 1, None),
+    ("flash_decode_attention_quant", False, "int8", 1, None),
+    ("paged_flash_decode_attention", True, "bf16", 1, None),
+    ("paged_flash_decode_attention", True, "bf16", 256, None),
+    ("paged_flash_decode_attention_quant", True, "int8", 1, None),
+    ("paged_flash_decode_attention_quant", True, "int8", 256, None),
+    ("paged_flash_decode_attention_tree", True, "bf16", 7, (2, 2)),
+    ("paged_flash_decode_attention_tree_quant", True, "int8", 7, (2, 2)))
+GPT_LANE_TOKENS = 32    # new tokens a request in the sampled and spec runs
+GPT_PARAMS = 1_418_842_112          # GPTConfig.gpt3_1p3b()
+GPT_KV_BYTES = 196_608              # bf16 K and V a token: 2 x 24 x 2048 x 2
+GPT_TF_REQUESTS = 4                 # fp32 full-depth teacher-forced check
+
+
+def part_timer():
+    """(mark, parts): ``mark(name)`` records the seconds since the
+    previous mark (or since this call) in ``parts`` under ``name``."""
+    parts = {}
+    last = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        parts[name] = now - last[0]
+        last[0] = now
+    return mark, parts
+
+
+def seeded_gpt(cfg, seed, device, dtype):
+    """GPT with linear and embedding weights N(0, 0.02) from a seeded
+    generator on ``device``, LayerNorm weights one and every bias zero."""
+    import torch
+
+    from paddle_tpu_torch.models import GPTForCausalLM
+
+    model = GPTForCausalLM(cfg, device=device, dtype=dtype)
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bias"):
+                p.zero_()
+            elif ".ln_" in name:
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=g)
+    return model
+
+
+def gpt_attention_rows(rng):
+    """K4-K8 against their plain versions at GPT-3 1.3B's shapes (16
+    heads of 128, group 1, bf16 queries, B 8 at the engine's row
+    lengths, max_len 2048): the decode step over bf16 and int8 storage
+    (contiguous K4/K5, paged K6/K7), the 256-token prefill chunk (K6/K7)
+    and the [2, 2] verify bundle (K8 over bf16 and int8 pools). SDPA over
+    the gathered (dequantized) cache with the same mask is the library
+    yardstick."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.generation import spec_tree_plan
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.quantization.intx import unpack_absmax
+
+    dev = torch.device(DEV)
+    dtype, dname, isz = torch.bfloat16, "bfloat16", 2
+    H, d, max_len, bs = 16, 128, 2048, 16
+    nb = max_len // bs
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    rows = []
+    for kernel, paged, fmt, w, tree in GPT_ATTENTION:
+        quant = fmt != "bf16"
+        B = 1 if w == 256 else 8
+        pos = np.array([1280]) if w == 256 else np.array(GPT_ROWS)
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+        q = torch.randn(B, w, H, d, device=dev, generator=g).to(dtype)
+
+        def store(shape):
+            t = torch.randn(shape, device=dev, generator=g)
+            return quantize_cache(t, fmt) if quant else (t.to(dtype), None)
+
+        if paged:
+            N = B * nb + 1
+            (kp, ksc), (vp, vsc) = store((N, bs, H, d)), store((N, bs, H, d))
+            bt = torch.tensor((rng.permutation(N - 1)[:B * nb] + 1)
+                              .reshape(B, nb).astype("int32"), device=dev)
+            kc, vc = da._take_blocks(kp, bt), da._take_blocks(vp, bt)
+            kcs, vcs = (None, None) if not quant else (
+                da._take_blocks(ksc, bt), da._take_blocks(vsc, bt))
+            extra = bt.numel() * 4 + B * 4
+        else:
+            (kc, kcs), (vc, vcs) = store((B, max_len, H, d)), \
+                store((B, max_len, H, d))
+            extra = B * 4
+        scales = dict(k_scale=ksc if paged else kcs,
+                      v_scale=vsc if paged else vcs) if quant else {}
+        mask = None
+        anc = None
+        if tree is not None:
+            anc = torch.from_numpy(spec_tree_plan(tree)["anc"])
+            mask = anc[None].expand(B, w, w).contiguous().to(dev)
+            extra += mask.numel()
+        if paged:
+            run = lambda: da.paged_flash_decode_attention(  # noqa: E731
+                q, kp, vp, bt, pos_t, ancestor_mask=mask, **scales)
+            plain = lambda: da.paged_flash_decode_attention_ref(  # noqa: E731
+                q, kp, vp, bt, pos_t, ancestor_mask=mask, **scales)
+        else:
+            run = lambda: da.flash_decode_attention(  # noqa: E731
+                q, kc, vc, pos_t, **scales)
+            plain = lambda: da.flash_decode_attention_ref(  # noqa: E731
+                q, kc, vc, pos_t, **scales)
+        got = run()
+        want = plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        lens = [min(int(p) + w, max_len) for p in pos]
+        lens_t = torch.tensor(lens, device=dev)
+        kd, vd = (unpack_absmax(kc, kcs[..., None], fmt, dtype),
+                  unpack_absmax(vc, vcs[..., None], fmt, dtype)) \
+            if quant else (kc, vc)
+        if tree is None:
+            qpos = (lens_t - w)[:, None] + torch.arange(w, device=dev)[None]
+            am = (torch.arange(max_len, device=dev)[None, None, :]
+                  <= qpos[:, :, None])[:, None]
+        else:
+            am = da.ancestor_visibility(lens_t - w, mask, max_len)[:, None]
+        qs, ks_, vs_ = q.transpose(1, 2), kd.transpose(1, 2), \
+            vd.transpose(1, 2)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qs, ks_, vs_, attn_mask=am)
+        bound, bound_by = attention_bound(
+            lens, w, H, H, d, isz, extra, dname,
+            kv_itemsize=1 if quant else None, scale_bytes=4 if quant else 0,
+            bundle_pairs=int(anc.sum()) if anc is not None else None)
+        ms = cuda_ms(run, 50)
+        row = {"phase": "gpt_kernel", "model": "gpt3_1p3b", "name": kernel,
+               "kv_format": fmt, "dtype": dname,
+               "tree": list(tree) if tree else None, "B": B, "q_len": w,
+               "heads": H, "kv_heads": H, "group": 1,
+               "body": da.bundle_body(w, 1, dtype, fmt), "head_dim": d,
+               "max_len": max_len, "block_size": bs if paged else None,
+               "pos": [int(p) for p in pos], "max_abs_err": err,
+               "atol": ATOL[dname], "ok": err <= ATOL[dname], "ms": ms,
+               "bound_share": bound / ms, "plain_ms": cuda_ms(plain, 5),
+               "library_ms": cuda_ms(lib, 20),
+               "library": "F.scaled_dot_product_attention over the "
+                          "gathered" + (" and dequantized" if quant else "")
+                          + " cache",
+               "bound_ms": bound, "bound_by": bound_by}
+        emit(row)
+        rows.append(row)
+        check(row["ok"], f"{kernel} disagrees with its plain version at "
+                         f"GPT's shape: {json.dumps(row)}")
+        del kc, vc, kd, vd, ks_, vs_
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gpt_kernel_phase():
+    """``gpt_kernel``: K4-K8 (``gpt_attention_rows``) and K9 at GPT-3
+    1.3B's four linear shapes, M 8 (a decode step of 8 slots) and M 256
+    (a prefill chunk), int8 and fp8, bf16 activations: each against its
+    plain version with the ``kernel`` rows' tolerances, with its time,
+    the plain version's, the library call's and the bound."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    rows = gpt_attention_rows(np.random.RandomState(SEED + 12))
+    g = torch.Generator(device=torch.device(DEV)).manual_seed(SEED + 13)
+    for fmt in QUANT_FORMATS:
+        for N, K in GPT_QMM_SHAPES:
+            rows += qmm_rows(N, K, (8, 256), torch.bfloat16, fmt, g,
+                             phase="gpt_kernel", model="gpt3_1p3b")
+    torch.cuda.empty_cache()
+    emit({"phase": "gpt_kernel", "rows": len(rows),
+          "phase_seconds": time.perf_counter() - t0})
+    return rows
+
+
+def gpt_serve_phase(kind):
+    """``gpt_serve``: ``GPTConfig.gpt3_1p3b(dtype="bfloat16")`` at full
+    width and depth with seeded weights (``seeded_gpt``), on the card:
+    ``TRAFFIC`` (vocab 50304) through the default-shaped engine (K6
+    exactly 24 a decode step and 24 a chunk, by body, no paged fallback),
+    ``generate`` on two prompts (K4), a profiled decode iteration, the
+    first eight requests (their first ``GPT_LANE_TOKENS`` new tokens)
+    sampled (``sample_params``) and through the chain (k 4) and tree
+    [2, 2] lanes with ``truncated_draft(target, 2)`` (K6, K8), then the
+    same weights converted to int8 (biased weight-only linears) over
+    int8 KV blocks: the traffic (K7, K9 exactly, no fallback) and
+    ``generate(kv_format="int8")`` (K5). Returns the requests and the
+    launch counts by run."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.generation import (kv_cache_bytes_per_token,
+                                             truncated_draft)
+    from paddle_tpu_torch.kernels import quant_matmul as qm
+    from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.quantization import convert_for_serving
+
+    t_phase = time.perf_counter()
+    mark, parts = part_timer()
+    cfg = GPTConfig.gpt3_1p3b(dtype="bfloat16")
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model = seeded_gpt(cfg, SEED + 12, DEV, torch.bfloat16).eval()
+    torch.cuda.synchronize()
+    params = sum(p.numel() for p in model.parameters())
+    kv_bytes = kv_cache_bytes_per_token(cfg, "bf16", torch.bfloat16)
+    check(params == GPT_PARAMS and kv_bytes == GPT_KV_BYTES,
+          f"gpt3_1p3b: {params} parameters, {kv_bytes} KV bytes a token")
+    bf16_bytes = model_bytes(model)
+    emit({"phase": "gpt_serve", "part": "model", "name": "gpt3_1p3b",
+          "dtype": "bfloat16", "params": params, "model_bytes": bf16_bytes,
+          "kv_bytes_per_token": kv_bytes,
+          "seconds": time.perf_counter() - t0})
+    requests = traffic(np.random.RandomState(SEED + 12), cfg.vocab_size)
+    out = {}
+    mark("model")
+
+    def serve(tag, reqs_in, **kw):
+        eng, reqs, secs, launches, fallbacks, bodies = serve_engine(
+            model, reqs_in, **kw)
+        st = eng.stats()
+        del eng
+        torch.cuda.empty_cache()
+        outputs = [list(r.output_tokens) for r in reqs]
+        gen = sum(len(t) for t in outputs)
+        return reqs, st, launches, fallbacks, bodies, outputs, {
+            "phase": "gpt_serve", "part": tag, "model": "gpt3_1p3b",
+            "requests": len(reqs), "decode_steps": st["steps"],
+            "prefill_chunks": st["prefill_chunks"],
+            "preemptions": st["preemptions"],
+            "prompt_tokens": sum(len(p) for p, _ in reqs_in),
+            "generated_tokens": gen, "seconds": secs,
+            "tokens_per_s": gen / secs, "kernel_launches": launches,
+            "fallbacks": fallbacks, "card": kind}
+
+    # bf16 greedy, the whole traffic: K6 24 a decode step and 24 a chunk
+    reqs, st, launches, fb, bodies, outputs, row = serve("serve", requests)
+    row["kernel_bodies"] = check_serve("gpt bf16", requests, reqs, st,
+                                       launches, fb, bodies, L, "bfloat16",
+                                       "default")
+    row["k6_per_decode_step_and_chunk"] = L
+    emit(row)
+    out["serve"], tps = launches, row["tokens_per_s"]
+    mark("serve")
+    out["generate"] = generate_phase(
+        model, cfg, requests, kind, False,
+        tags={"phase": "gpt_serve", "part": "generate",
+              "model": "gpt3_1p3b"})
+    mark("generate")
+    # the decode iteration only: a profiled prefill window of GPT's many
+    # small kernels costs about 20 s of the script's budget
+    profile_phase(model, requests, kind, model_name="gpt3_1p3b",
+                  windows=(0, 5))
+    mark("profile")
+    # the first eight requests (their first GPT_LANE_TOKENS new tokens)
+    # with the sampled traffic's parameters
+    n = SAMPLED_SPEC_REQUESTS
+    short = [(p, min(m, GPT_LANE_TOKENS)) for p, m in requests[:n]]
+    reqs, st, launches, fb, bodies, sampled, row = serve(
+        "sampled", short, params=sample_params(n))
+    row["kernel_bodies"] = check_serve("gpt bf16 sampled", short, reqs, st,
+                                       launches, fb, bodies, L, "bfloat16",
+                                       "default")
+    row["tokens"] = sampled
+    row["sampled_requests"] = sum(bool(p.get("do_sample"))
+                                  for p in sample_params(n))
+    emit(row)
+    mark("sampled")
+    # both speculative lanes on the same eight greedy requests
+    draft = truncated_draft(model, DRAFT_LAYERS)
+    plain = {"bf16_tokens_per_s": tps, "outputs": {
+        "bf16": [o[:m] for o, (_, m) in zip(outputs, short)]}}
+    for label, ov in SPEC_LANES[:2]:
+        out[label] = spec_lane(model, draft, short, label, ov, plain, kind,
+                               model_name="gpt3_1p3b")
+        mark(label)
+    del draft
+    # int8: the same weights converted, biases kept
+    t0 = time.perf_counter()
+    convert_for_serving(model, fmt="int8")
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    qm.reset_counters()
+    reqs, st, launches, fb, bodies, i8, row = serve("int8 serve", requests,
+                                                    kv_format="int8")
+    qmm = dict(qm.LAUNCHES)
+    row["kernel_bodies"] = check_quant_serve(
+        "gpt int8 serve", model, requests, reqs, st, launches, fb, bodies,
+        qmm, dict(qm.BODY_LAUNCHES), dict(qm.DISPATCH_FALLBACKS))
+    kb = st["kv_blocks"]
+    row.update({"weights": "int8", "kv_format": "int8",
+                "quant_matmul_launches": qmm,
+                "quant_matmul_bodies": dict(qm.BODY_LAUNCHES),
+                "quant_matmul_per_forward": 6 * L + 1,
+                "kv_bytes_per_token": kb["bytes_per_token"],
+                "capacity_vs_bf16": kb["capacity_vs_bf16"],
+                "model_bytes": model_bytes(model),
+                "model_bytes_bf16": bf16_bytes, "convert_seconds": convert_s,
+                "bf16_tokens_per_s": tps,
+                "requests_equal_to_bf16_engine": sum(
+                    a == b for a, b in zip(i8, outputs))})
+    row["generate"] = quant_generate(model, cfg, requests, "int8")
+    emit(row)
+    out["int8 serve"], out["int8 qmm"] = launches, qmm
+    out["int8 generate"] = row["generate"]["kernel_launches"]
+    del model
+    torch.cuda.empty_cache()
+    mark("int8")
+    emit({"phase": "gpt_serve", "phase_seconds":
+          time.perf_counter() - t_phase, "part_seconds": parts})
+    return requests, out
+
+
+def gpt_parity_phase(kind, requests):
+    """``gpt_parity``: fp32 GPT-3 1.3B at full width and depth 2, the
+    same seeded weights on the card and on the CPU (plain versions).
+    Asserts card tokens equal to CPU tokens for the engine, ``generate``,
+    the chain (k 4) and tree [2, 2] lanes with a 1-layer draft (drafted
+    and accepted counts too), an int8 engine (both from the CPU's
+    converted weights) and a sampled engine; then the C1 edge at width
+    2048 with ``max_position_embeddings`` 64 = ``EDGE_SERVING``'s
+    max_len: card engine = CPU engine = card ``generate``, every logit
+    of the card's engine finite (its last chunk's pad rows sit past the
+    table). Then fp32 at full depth on the card: the engine's tokens for
+    the first ``GPT_TF_REQUESTS`` requests against the card's own
+    no-cache forward (teacher-forced, near ties skipped)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.generation import generate, truncated_draft
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.quantization import convert_for_serving
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    t_phase = time.perf_counter()
+    mark, parts = part_timer()
+    cfg = GPTConfig.gpt3_1p3b(num_hidden_layers=2, dtype="float32")
+
+    def empty(c, dev, state):
+        """A model of config ``c`` on ``dev`` holding ``state`` (built on
+        the meta device: no initializer runs)."""
+        m = GPTForCausalLM(c, device="meta", dtype=torch.float32)
+        m = m.to_empty(device=dev).eval()
+        m.load_state_dict(state)
+        return m
+
+    gpu = seeded_gpt(cfg, SEED + 13, DEV, torch.float32).eval()
+    cpu = empty(cfg, "cpu", gpu.state_dict())
+    mark("models")
+    rng = np.random.RandomState(SEED + 13)
+    prompts = [rng.randint(1, cfg.vocab_size, n).tolist()
+               for n in (40, 200)]
+    new = 6
+
+    def serve(model, dev, draft=None, sampling=None, **ov):
+        eng = ServingEngine(model, ServingConfig(
+            max_slots=2, max_len=512, block_size=16, prefill_chunk=128,
+            **ov), device=dev, draft_model=draft)
+        reqs = [eng.submit(p, max_new_tokens=new, **kw) for p, kw in
+                zip(prompts, sampling or [{}] * len(prompts))]
+        eng.run_until_idle()
+        check(all(r.status == "completed" for r in reqs),
+              f"gpt_parity: {dev} engine left requests unfinished")
+        return ([list(r.output_tokens) for r in reqs],
+                [(r.spec_drafted, r.spec_accepted) for r in reqs])
+
+    devs = (("cuda", gpu, DEV), ("cpu", cpu, "cpu"))
+    res = {}
+    res["engine"] = {n: serve(m, d)[0] for n, m, d in devs}
+    mark("engine")
+    res["generate"] = {n: [generate(m, [p], max_new_tokens=new)[0, len(p):]
+                           .tolist() for p in prompts] for n, m, d in devs}
+    mark("generate")
+    drafts = {n: truncated_draft(m, 1) for n, m, _ in devs}
+    for label, ov in (("chain k4", dict(spec_k=4)),
+                      ("tree [2,2]", dict(spec_tree=(2, 2)))):
+        res[label] = {n: serve(m, d, drafts[n], **ov) for n, m, d in devs}
+        check(res[label]["cuda"][0] == res["engine"]["cuda"],
+              f"gpt_parity {label}: card spec tokens differ from the card's "
+              f"plain engine")
+        mark(label)
+    sp = [dict(SAMPLE_CYCLE[1 + i], seed=100 + i)
+          for i in range(len(prompts))]
+    res["sampled engine"] = {n: serve(m, d, sampling=sp)[0]
+                             for n, m, d in devs}
+    mark("sampled engine")
+    del drafts
+    # the C1 edge: max_len == max_position_embeddings, the last chunk's
+    # pads past the learned table; the same weights, wpe cut to its rows
+    ecfg = dataclasses.replace(cfg, max_position_embeddings=EDGE_SERVING[
+        "max_len"])
+    est = dict(cpu.state_dict())
+    est["gpt.wpe.weight"] = est["gpt.wpe.weight"][:EDGE_SERVING["max_len"]]
+    ecpu, egpu = empty(ecfg, "cpu", est), empty(ecfg, DEV, est)
+    prompt = np.random.RandomState(3).randint(1, ecfg.vocab_size,
+                                              56).tolist()
+    finite = []
+    hook = egpu.lm_head.register_forward_hook(
+        lambda mod, inp, o: finite.append(bool(torch.isfinite(o).all())))
+    edge = {}
+    for name, model, dev in (("cuda", egpu, DEV), ("cpu", ecpu, "cpu")):
+        eng = ServingEngine(model, ServingConfig(**EDGE_SERVING), device=dev)
+        req = eng.submit(prompt, max_new_tokens=6)
+        eng.run_until_idle()
+        check(req.status == "completed",
+              f"gpt_parity edge: the {name} engine left the request "
+              f"unfinished")
+        edge[name] = list(req.output_tokens)
+        if name == "cuda":
+            hook.remove()
+    edge["generate cuda"] = generate(egpu, [prompt],
+                                     max_new_tokens=6)[0, 56:].tolist()
+    res["edge"] = edge
+    del egpu, ecpu, est
+    mark("edge")
+    convert_for_serving(cpu, fmt="int8")
+    convert_for_serving(gpu, fmt="int8")
+    gpu.load_state_dict(cpu.state_dict())
+    res["int8 engine"] = {n: serve(m, d, kv_format="int8")[0]
+                          for n, m, d in devs}
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    mark("int8 engine")
+    row = {"phase": "gpt_parity", "dtype": "float32", "layers": 2,
+           "model": "gpt3_1p3b", "requests": len(prompts), "new_tokens": new,
+           **{k: v for k, v in res.items()},
+           "edge_forwards_all_finite": finite, "card": kind}
+    for label in ("engine", "generate", "sampled engine", "int8 engine",
+                  "chain k4", "tree [2,2]"):
+        row[f"{label} card == cpu"] = res[label]["cuda"] == res[label]["cpu"]
+    emit(row)
+    for label in ("engine", "generate", "sampled engine", "int8 engine",
+                  "chain k4", "tree [2,2]"):
+        check(res[label]["cuda"] == res[label]["cpu"],
+              f"gpt_parity {label}: card {res[label]['cuda']} != CPU "
+              f"{res[label]['cpu']}")
+    check(res["generate"]["cuda"] == res["engine"]["cuda"],
+          "gpt_parity: card generate differs from the card engine")
+    check(edge["cuda"] == edge["cpu"] == edge["generate cuda"],
+          f"gpt_parity edge: {edge}")
+    check(finite and all(finite),
+          f"gpt_parity edge: non-finite logits on the card {finite}")
+    # fp32 at full depth: the engine against the card's no-cache forward
+    t0 = time.perf_counter()
+    fcfg = GPTConfig.gpt3_1p3b(dtype="float32")
+    model = seeded_gpt(fcfg, SEED + 12, DEV, torch.float32).eval()
+    reqs_in = requests[:GPT_TF_REQUESTS]
+    eng, reqs, secs, launches, fb, bodies = serve_engine(model, reqs_in)
+    st = eng.stats()
+    del eng
+    bodies = check_serve("gpt fp32", reqs_in, reqs, st, launches, fb,
+                         bodies, fcfg.num_hidden_layers, "float32",
+                         "default")
+    tf = _teacher_forced_all(model, [p for p, _ in reqs_in],
+                             [list(r.output_tokens) for r in reqs],
+                             "gpt fp32 full depth", strict=True)
+    emit({"phase": "gpt_parity", "part": "teacher_forced",
+          "dtype": "float32", "layers": fcfg.num_hidden_layers,
+          "requests": len(reqs_in), "kernel_bodies": bodies, **tf,
+          "seconds": time.perf_counter() - t0, "card": kind})
+    del model
+    torch.cuda.empty_cache()
+    mark("teacher_forced")
+    emit({"phase": "gpt_parity", "phase_seconds":
+          time.perf_counter() - t_phase, "part_seconds": parts})
 
 
 # ---------------------------------------------------------------------------
@@ -3302,13 +3863,15 @@ def conv_summary(conv_rows, infer_launches, resnet_train_launches):
 
 def summary(rows, serve_launches, gen_launches, flash_rows,
             train_launches, quant_rows, quant_launches, tree_rows,
-            spec_launches):
+            spec_launches, gpt_rows, gpt_launches):
     """One object per kernel, with the numbers of its main-path shape:
     for K1-K3 the training shape, for K4-K7 the decode step (bf16, group
     1 as in Llama-2-7B; int8 for K5/K7), for K8 the [2, 2] tree's verify
     bundle (q_len 7, bf16; int8 pools for its quantized variant; launches
     from the tree [2,2] lanes), for K9 q_proj's weight in int8
-    at a decode step of 8 slots."""
+    at a decode step of 8 slots. The decode kernels and K9 add
+    ``gpt_launches`` (the GPT path's runs) and ``gpt``: the row at GPT-3
+    1.3B's shape (K9: q_proj, 2048 x 2048, int8, M 8)."""
     out = []
     for name, (tag, replaces) in FLASH_META.items():
         mine = [r for r in flash_rows if r["name"] == name]
@@ -3329,17 +3892,20 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
             "replaces": "paddle_tpu/pallas_kernels/decode_attention.py:491 "
                         "(_flash_decode, _decode_kernel :336)",
             "tpu_counterpart": "K4", "launches": gen_launches,
+            "gpt_launches": gpt_launches["generate"],
             "main": dict(dtype="bfloat16", q_len=1, group=1)},
         "paged_flash_decode_attention": {
             "replaces": "paddle_tpu/pallas_kernels/decode_attention.py:685 "
                         "(_paged_flash_decode, _decode_kernel :336)",
             "tpu_counterpart": "K6", "launches": serve_launches,
+            "gpt_launches": gpt_launches["serve"],
             "main": dict(dtype="bfloat16", q_len=1, group=1),
             "bundle": dict(dtype="bfloat16", q_len=256, group=1)},
         "flash_decode_attention_quant": {
             "replaces": "paddle_tpu/pallas_kernels/decode_attention.py:491 "
                         "(_flash_decode quant, _decode_kernel_quant :371)",
             "tpu_counterpart": "K5", "launches": quant_launches["generate"],
+            "gpt_launches": gpt_launches["int8 generate"],
             "main": dict(dtype="bfloat16", kv_format="int8", q_len=1,
                          group=1)},
         "paged_flash_decode_attention_quant": {
@@ -3347,6 +3913,7 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
                         "(_paged_flash_decode quant, _decode_kernel_quant "
                         ":371)",
             "tpu_counterpart": "K7", "launches": quant_launches["serve"],
+            "gpt_launches": gpt_launches["int8 serve"],
             "main": dict(dtype="bfloat16", kv_format="int8", q_len=1,
                          group=1),
             "bundle": dict(dtype="bfloat16", kv_format="int8", q_len=256,
@@ -3356,6 +3923,7 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
                         "(_paged_flash_decode with ancestor_mask, "
                         "_cell_partial mask branch :299-316)",
             "tpu_counterpart": "K8", "launches": spec_launches["tree [2,2]"],
+            "gpt_launches": gpt_launches["tree [2,2]"],
             "main": dict(dtype="bfloat16", pool="bf16", q_len=7, group=1),
             "bundle": dict(dtype="bfloat16", pool="bf16", q_len=29,
                            group=1)},
@@ -3365,6 +3933,7 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
                         "_decode_kernel_quant :371 -> _cell_partial mask "
                         "branch :299-316)",
             "tpu_counterpart": "K8", "launches": quant_launches["spec"],
+            "gpt_launches": {},       # no GPT lane runs K8 over int8 pools
             "main": dict(dtype="bfloat16", pool="int8", q_len=7, group=1),
             "bundle": dict(dtype="bfloat16", pool="int8", q_len=29,
                            group=1)},
@@ -3372,6 +3941,7 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
             "replaces": "paddle_tpu/pallas_kernels/quant_matmul.py:193 "
                         "(quant_matmul, _qmm_kernel :126)",
             "tpu_counterpart": "K9", "launches": quant_launches["qmm"],
+            "gpt_launches": gpt_launches["int8 qmm"],
             "source": "paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
             "main": dict(dtype="bfloat16", weight_format="int8", M=8,
                          N=4096, K=4096),
@@ -3413,6 +3983,18 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
             entry["prefill"] = {k: b[k] for k in (
                 "M", "body", "ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err")}
+        # the same kernel at GPT-3 1.3B's shape (its main-path case)
+        gmain = dict(m["main"], **({"N": 2048, "K": 2048}
+                                   if "M" in m["main"] else {}))
+        gmain.pop("pool", None)
+        g = pick([r for r in gpt_rows if r["name"] == name], gmain)
+        entry["gpt_launches"] = m["gpt_launches"].get(name, 0)
+        entry["gpt"] = {k: g[k] for k in (
+            "B", "q_len", "M", "N", "K", "body", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "max_abs_err") if k in g}
+        entry["max_abs_err"] = max(entry["max_abs_err"], g["max_abs_err"])
+        entry["ok"] = entry["ok"] and all(
+            r["ok"] for r in gpt_rows if r["name"] == name)
         out.append(entry)
     return out
 
@@ -3528,9 +4110,16 @@ def main(argv=None) -> int:
     train_launches = train_phase(kind)
     train_parity_phase(kind)
 
+    # GPT-3 1.3B: the decode kernels and K9 at its shapes, its serving
+    # lanes at full width, and the fp32 card-against-CPU checks
+    gpt_rows = gpt_kernel_phase()
+    gpt_requests, gpt_launches = gpt_serve_phase(kind)
+    gpt_parity_phase(kind, gpt_requests)
+
     emit({"kernels": summary(rows, serve_launches, gen_launches, flash_rows,
                              train_launches, quant_rows, quant_launches,
-                             tree_rows, spec_launches) + conv_kernels})
+                             tree_rows, spec_launches, gpt_rows,
+                             gpt_launches) + conv_kernels})
     emit(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,8 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of ``paddle_tpu``.
 
 A second package beside the JAX one, with the same module names:
-``models.llama``, ``generation``, ``serving`` and ``kernels`` (the
+``models.llama``, ``models.gpt``, ``generation``, ``serving`` and
+``kernels`` (the
 counterpart of ``pallas_kernels``). It imports ``torch``, numpy and the
 standard library only. Its attention kernels are hand-written CUDA for
 Hopper (``kernels/csrc``), built with ``nvcc`` at first use.

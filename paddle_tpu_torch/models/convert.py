@@ -1,15 +1,17 @@
-"""Carry weights from the JAX package's models (Llama, ResNet) into the
-port.
+"""Carry weights from the JAX package's models (Llama, GPT, ResNet) into
+the port.
 
 The JAX model's ``{k: np.asarray(v._data) for k, v in
 model.state_dict().items()}`` uses the same key names as the port,
 buffers (BatchNorm's ``_mean``/``_variance``) included. Its ``nn.Linear``
 stores ``[in, out]``; torch stores ``[out, in]``, so the weight of every
 ``torch.nn.Linear`` of the port's model (a Llama's ``*_proj`` and
-``lm_head``, a ResNet's ``fc``) is transposed on the way in (the reverse
-of the JAX package's ``convert_hf_llama_state_dict``); conv weights are
-OIHW in both and cross unchanged. ``export_paddle_tpu_state`` goes the
-other way.
+``lm_head``, a GPT's ``*_proj``, ``fc_in``, ``fc_out`` and ``lm_head``, a
+ResNet's ``fc``) is transposed on the way in (the reverse of the JAX
+package's ``convert_hf_llama_state_dict``). Everything else crosses
+unchanged: 1-D tensors (biases, norm weights), embedding tables ([num,
+dim] in both: GPT's ``wte`` and ``wpe``) and conv weights (OIHW in both).
+``export_paddle_tpu_state`` goes the other way.
 
 A model converted for weight-only serving carries ``*.qweight`` [out,
 in] (int8 or fp8 e4m3) and ``*.scale`` [out] f32 in both packages: they

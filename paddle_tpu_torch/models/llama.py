@@ -47,7 +47,7 @@ from ..kernels.flash_attention import flash_attention
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
            "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP", "RMSNorm",
-           "apply_rotary_pos_emb", "rope_factors",
+           "apply_rotary_pos_emb", "rope_factors", "position_index",
            "scaled_dot_product_attention", "grouped_query_sdpa",
            "repeat_kv", "llama_pretrain_loss"]
 
@@ -95,12 +95,13 @@ def _rope_tables(head_dim: int, max_pos: int, theta: float):
     return torch.cos(freqs), torch.sin(freqs)
 
 
-def _rope_index(position_offset, b: int, s: int, max_pos: int, device):
-    """[b, s] (or [s]) table rows for an int, 0-d, [b] or [b, s] offset.
-    Rows past the table clamp to its last entry (as the JAX package's
-    gather clamps): only pad tokens of a final prefill chunk and bundle
-    nodes past a row's live width reach them, and their outputs are
-    unused."""
+def position_index(position_offset, b: int, s: int, max_pos: int, device):
+    """[b, s] (or [s]) rows of a position table (rotary factors, GPT's
+    learned positions) for an int, 0-d, [b] or [b, s] offset. Rows past
+    the table clamp to its last entry: only pad tokens of a final prefill
+    chunk and bundle nodes past a row's live width reach them, and their
+    outputs are unused (the JAX package's rope gather clamps there too;
+    its learned-position gather fills NaN, which stays in those rows)."""
     if isinstance(position_offset, torch.Tensor) and position_offset.dim() == 2:
         return position_offset.to(device).long().clamp(max=max_pos - 1)
     ar = torch.arange(s, device=device)
@@ -117,7 +118,8 @@ def rope_factors(cos_tab, sin_tab, position_offset, b: int, s: int, dtype):
     decode step's slot positions, or an explicit [b, s] grid), shaped
     [b or 1, s, 1, d/2] and cast from the fp32 tables to ``dtype``. The
     model computes them once per forward and every layer reuses them."""
-    idx = _rope_index(position_offset, b, s, cos_tab.shape[0], cos_tab.device)
+    idx = position_index(position_offset, b, s, cos_tab.shape[0],
+                         cos_tab.device)
     c, si = cos_tab[idx], sin_tab[idx]
     if c.dim() == 3:   # per-row [b, s, d/2]
         return c[:, :, None, :].to(dtype), si[:, :, None, :].to(dtype)

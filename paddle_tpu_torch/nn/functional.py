@@ -1,5 +1,5 @@
-"""Functional ops of the ResNet path (counterpart of the conv, pooling,
-norm and loss parts of ``paddle_tpu/nn/functional.py``).
+"""Functional ops of the ResNet and GPT paths (counterpart of the conv,
+pooling, norm, activation and loss parts of ``paddle_tpu/nn/functional.py``).
 
 Layouts follow the JAX package: ``data_format`` "NCHW" or "NHWC" names
 the layout of the tensor's dimensions, weights stay OIHW. A channels-last
@@ -20,11 +20,21 @@ unit's raw conv output and batch statistics, which the next qualifying
 conv consumes as its kernel's prologue (``conv_stats_pre``) without the
 normalized activation ever being computed; anything else asks for its
 ``value()``.
+
+``layer_norm`` and ``gelu`` keep the JAX package's order of operations,
+so that a bf16 activation rounds where it rounds there:
+``layer_norm`` takes the mean and the variance in f32 and rounds each to
+the activation dtype, then centres, scales, multiplies by the weight and
+adds the bias in that dtype (``torch.nn.functional.layer_norm`` rounds
+once at the end); ``gelu``'s tanh form computes ``jax.nn.gelu``'s
+formula in the input dtype, its constants rounded to it first.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import math
 
 import torch
 import torch.nn.functional as TF
@@ -33,7 +43,7 @@ from ..kernels import fused_conv as fc
 
 __all__ = ["relu", "conv2d", "max_pool2d", "adaptive_avg_pool2d", "linear",
            "flatten", "cross_entropy", "batch_norm", "fused_conv_bn",
-           "PendingBN", "value"]
+           "PendingBN", "value", "layer_norm", "gelu"]
 
 
 def _pair(v, n=2):
@@ -49,6 +59,47 @@ def linear(x, weight, bias=None):
     JAX package's [in, out] weights are transposed at load,
     ``models/convert.py``)."""
     return TF.linear(value(x), weight, bias)
+
+
+def _const(v: float, dtype):
+    """A 0-d constant rounded to ``dtype``, as a Python scalar of the JAX
+    package's arithmetic (weakly typed) rounds to the array's dtype."""
+    return torch.tensor(v, dtype=torch.float64).to(dtype)
+
+
+def gelu(x, approximate=True):
+    """``jax.nn.gelu``'s tanh form, ``x * 0.5 * (1 + tanh(sqrt(2 / pi) *
+    (x + 0.044715 * x^3)))``, every step in x's dtype (the erf form is
+    not ported: no model of the port uses it)."""
+    if not approximate:
+        raise NotImplementedError("gelu: only approximate=True (the tanh "
+                                  "form) is ported")
+    x = value(x)
+    c = _const(math.sqrt(2.0 / math.pi), x.dtype)
+    k = _const(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05):
+    """LayerNorm over the trailing ``normalized_shape`` dimensions: mean
+    and (biased) variance in f32, each rounded to x's dtype, then ``(x -
+    mean) * rsqrt(var + epsilon) * weight + bias`` in x's dtype."""
+    x = value(x)
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    dims = tuple(range(x.dim() - len(normalized_shape), x.dim()))
+    xf = x.float()
+    mean_f = xf.mean(dim=dims, keepdim=True)
+    var = (xf - mean_f).square().mean(dim=dims, keepdim=True).to(x.dtype)
+    # rsqrt in f32, rounded once (torch's bf16 rsqrt on the CPU is not
+    # correctly rounded; XLA's is)
+    inv = torch.rsqrt((var + _const(epsilon, x.dtype)).float()).to(x.dtype)
+    out = (x - mean_f.to(x.dtype)) * inv
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
 
 
 def flatten(x, start_axis=0, stop_axis=-1):

@@ -1,6 +1,6 @@
-"""Conv, pooling and BatchNorm layers of the ResNet path (counterpart of
-``paddle_tpu/nn/layers_conv_norm.py``), and the Conv2D -> BatchNorm2D
-(-> ReLU) fusion dispatch.
+"""Conv, pooling and BatchNorm layers of the ResNet path and GPT's
+LayerNorm (counterpart of ``paddle_tpu/nn/layers_conv_norm.py``), and the
+Conv2D -> BatchNorm2D (-> ReLU) fusion dispatch.
 
 In the JAX package a qualifying ``Conv2D`` tags its output and the
 consuming ``BatchNorm`` re-dispatches the pair from the conv's input;
@@ -33,9 +33,9 @@ from torch import nn
 from ..kernels.fused_conv import conv_qualifies
 from . import functional as F
 
-__all__ = ["Conv2D", "BatchNorm2D", "MaxPool2D", "AdaptiveAvgPool2D", "ReLU",
-           "conv_bn", "fused_conv_enabled", "FUSED_CONV_DISPATCH",
-           "reset_dispatch_counter"]
+__all__ = ["Conv2D", "BatchNorm2D", "LayerNorm", "MaxPool2D",
+           "AdaptiveAvgPool2D", "ReLU", "conv_bn", "fused_conv_enabled",
+           "FUSED_CONV_DISPATCH", "reset_dispatch_counter"]
 
 _FUSED_CONV_ENV = "PADDLE_TPU_FUSED_CONV"
 FUSED_CONV_DISPATCH: Counter = Counter()
@@ -131,6 +131,27 @@ class BatchNorm2D(nn.Module):
                             momentum=self._momentum, epsilon=self._epsilon,
                             data_format=self._data_format,
                             use_global_stats=self._use_global_stats)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the trailing ``normalized_shape`` dimensions with
+    ``weight`` (ones) and ``bias`` (zeros), in ``F.layer_norm``'s order of
+    operations."""
+
+    def __init__(self, normalized_shape, epsilon=1e-05, device=None,
+                 dtype=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self._normalized_shape = tuple(normalized_shape)
+        self._epsilon = epsilon
+        kw = dict(device=device, dtype=dtype)
+        self.weight = nn.Parameter(torch.ones(self._normalized_shape, **kw))
+        self.bias = nn.Parameter(torch.zeros(self._normalized_shape, **kw))
+
+    def forward(self, x):
+        return F.layer_norm(x, self._normalized_shape, self.weight,
+                            self.bias, self._epsilon)
 
 
 class ReLU(nn.Module):

@@ -1,8 +1,10 @@
 """The CUDA kernels (flash decode K4-K8, its quantized decode step and
 its exact division, flash attention K1-K3, the quantized matmul K9 and
-the fused convs K10/K11) against their plain PyTorch versions, on a GPU;
-and the sampler (threefry keys, bits, Gumbel draws, ``select_tokens``)
-on the card against the same code on the CPU.
+the fused convs K10/K11) against their plain PyTorch versions, on a GPU,
+K4-K9 also at GPT-3 1.3B's shapes (``-k gpt``, with the biased
+weight-only linear); and the sampler (threefry keys, bits, Gumbel
+draws, ``select_tokens``) on the card against the same code on the
+CPU.
 Skipped where CUDA is absent; on a GPU machine (which has no jax) run
 this file alone:
 
@@ -1241,3 +1243,108 @@ def test_select_tokens_on_the_card_equals_the_cpu(dtype):
     assert torch.equal(tgen._select_token(logits[:8], cfg, k),
                        tgen._select_token(logits[:8].cuda(), cfg,
                                           k.cuda()).cpu())
+
+
+# GPT-3 1.3B's decode shapes: 16 heads of 128 (group 1), B 8 at the first
+# eight row lengths of chip_smoke.py's served traffic, 2048 positions
+GPT_LENS = [1500, 530, 1480, 1400, 1350, 1300, 1100, 700]
+GPT_HEADS, GPT_BLOCKS = 16, 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["K4-K5", "K6-K7"])
+def test_gpt_decode_step_matches_plain(paged, fmt):
+    """The decode step at GPT-3 1.3B's shape (bf16 queries over bf16 or
+    int8 K/V, contiguous and paged) on ``flash_decode_qrows``, against
+    the plain version."""
+    require_cuda()
+    rng = np.random.RandomState(1300 + paged + len(fmt))
+    got, want = _qrows_run(*_qrows_case(rng, GPT_LENS, 1, 128, fmt, paged,
+                                        GPT_HEADS, GPT_BLOCKS, 16))
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+@pytest.mark.parametrize("factors", [None, [2, 2]], ids=["chunk", "tree"])
+def test_gpt_bundles_match_plain(factors, fmt):
+    """GPT-3 1.3B's 256-token prefill chunk (K6/K7) and [2, 2] verify
+    bundle over B 8 rows (K8) on the tensor-core body, 16 heads of 128,
+    bf16 and int8 pools, against the plain version."""
+    require_cuda()
+    rng = np.random.RandomState(1310 + len(fmt) + (factors is None))
+    B, bs, N = (1, 16, GPT_BLOCKS + 1) if factors is None \
+        else (8, 16, 8 * GPT_BLOCKS + 1)
+    w = 256 if factors is None else 7
+    q = _cuda(rng, (B, w, GPT_HEADS, 128), torch.bfloat16)
+    kp, ks = _kv(rng, (N, bs, GPT_HEADS, 128), fmt)
+    vp, vs = _kv(rng, (N, bs, GPT_HEADS, 128), fmt)
+    scales = {} if ks is None else dict(k_scale=ks, v_scale=vs)
+    bt = torch.tensor((rng.permutation(N - 1)[:B * GPT_BLOCKS] + 1)
+                      .reshape(B, GPT_BLOCKS), dtype=torch.int32,
+                      device="cuda")
+    pos = torch.tensor([1280] if factors is None else GPT_LENS,
+                       dtype=torch.int32, device="cuda")
+    mask = None if factors is None else _tree_mask(factors, B)
+    tda.reset_counters()
+    got = tda.paged_flash_decode_attention(q, kp, vp, bt, pos,
+                                           ancestor_mask=mask, **scales)
+    torch.cuda.synchronize()
+    name = "paged_flash_decode_attention" + ("" if mask is None else "_tree") \
+        + ("_quant" if scales else "")
+    assert dict(tda.BODY_LAUNCHES) == {f"{name}/mma": 1}
+    want = tda.paged_flash_decode_attention_ref(q, kp, vp, bt, pos,
+                                                ancestor_mask=mask, **scales)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("M", [8, 256])
+@pytest.mark.parametrize("N,K", [(2048, 2048), (8192, 2048), (2048, 8192),
+                                 (50304, 2048)])
+def test_gpt_quant_matmul_matches_plain(N, K, M, fmt):
+    """K9 at GPT-3 1.3B's four linear shapes, a decode step (M 8, the
+    GEMV) and a prefill chunk (M 256, the wgmma body), against the plain
+    version."""
+    from paddle_tpu_torch.kernels import quant_matmul as tqm
+
+    require_cuda()
+    rng = np.random.RandomState(M + N + K + len(fmt))
+    x, w, scale = _qmm_case(rng, M, N, K, fmt)
+    tqm.reset_counters()
+    got = tqm.quant_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    body = "gemv" if M <= 16 else "wgmma"
+    assert dict(tqm.BODY_LAUNCHES) == {f"quant_matmul/{body}": 1}
+    want = tqm.quant_matmul_ref(x, w, scale)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("M", [8, 256])
+def test_weight_only_linear_with_bias_on_the_card(M, fmt):
+    """A biased weight-only linear (GPT's q_proj at 2048 x 2048, bf16):
+    K9, then the bias in x's dtype. The card's output is the kernel's
+    unbiased output plus the bias bit for bit, and within the bf16 atol
+    of the plain product plus the bias."""
+    from paddle_tpu_torch.kernels import quant_matmul as tqm
+    from paddle_tpu_torch.nn.quant import weight_only_linear
+
+    require_cuda()
+    rng = np.random.RandomState(1320 + M + len(fmt))
+    x, w, scale = _qmm_case(rng, M, 2048, 2048, fmt)
+    bias = (_cuda(rng, (2048,), torch.float32) * 0.1).to(torch.bfloat16)
+    tqm.reset_counters()
+    with torch.no_grad():      # the kernel is forward-only
+        got = weight_only_linear(x, w, bias, scale, weight_dtype=fmt)
+        bare = weight_only_linear(x, w, None, scale, weight_dtype=fmt)
+    torch.cuda.synchronize()
+    assert tqm.LAUNCHES["quant_matmul"] == 2
+    assert torch.equal(got, bare + bias)
+    want = tqm.quant_matmul_ref(x, w, scale) + bias
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATOL[torch.bfloat16], rtol=0)
