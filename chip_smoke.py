@@ -151,6 +151,29 @@ Phases, each printing JSON lines (and failing loudly on any check):
    with the same checks, its tokens reported against the plain sampled
    engine's. A ``profile`` of
    a [4, 2, 2] round beside the plain decode step.
+   ``http_serve``: the host serving stack on the same bf16 model and
+   ``serve``'s engine configuration. ``warmup()`` (0 builds; K6 once a
+   layer for the chunk on ``mma`` and once for the step on ``qrows``)
+   then ``start()`` with the 12 requests queued: every ``result()``
+   bit-equal to ``serve``'s default engine, tokens/s beside it. Then a
+   fresh warmed engine behind ``ServingHTTPServer`` on 127.0.0.1: 12
+   client threads POST the requests at once (every third streamed); all
+   200 and completed with their token counts, each stream's tokens equal
+   its record's; ``/healthz`` probed every 50 ms never reads
+   ``stalled``; ``/metrics`` parses and its completed requests and
+   generated tokens rise by the traffic's; ``/stats`` counts 12 more
+   TTFTs; ``/debug/requests`` read during the traffic lists running rows
+   with their phase and KV blocks; ``/trace?trace=`` holds one request's
+   ``request``, ``queued``, ``prefill`` and ``decode`` spans in order;
+   K6 exactly layers x (decode steps + prefill chunks), split by body,
+   no fallback; the teacher-forced agreement (reported), tokens/s and
+   TTFT / TPOT p50 and p95 beside the started engine's. ``POST /drain``
+   with four requests in flight: drained, all four complete, then
+   ``/healthz`` and ``POST /generate`` answer 503. On a 1-slot engine:
+   an injected loop crash fails its request and reads ``crashed``; an
+   injected hang reads ``stalled`` (0.5 s) and, released, completes and
+   reads ``ok``. Last, the decode iteration's wall ms with tracing on
+   and off (alternating windows of ten) beside the ``profile`` line's.
 6. ``serve_quant``: the same seeded Llama-2-7B converted by
    ``convert_for_serving`` to int8 weight-only linears and served with
    int8 KV blocks over the same 12 requests. Checks: every request
@@ -236,7 +259,8 @@ Phases, each printing JSON lines (and failing loudly on any check):
    without its prologue separately); K6 and K7 add their 256-token
    chunk and K8 its [4, 2, 2] verify under ``bundle``; the decode
    kernels and K9 add ``gpt_launches`` (the GPT path's runs) and
-   ``gpt`` (the row at GPT-3 1.3B's shape); then the card's
+   ``gpt`` (the row at GPT-3 1.3B's shape), K6 ``http_launches`` (its
+   launches through the HTTP front end); then the card's
    nvidia-smi line;
    the last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -1763,6 +1787,423 @@ def spec_profile_phase(model, requests, kind, plain_decode):
           "plain_decode_iteration": plain_decode, "card": kind})
     del eng, draft
     torch.cuda.empty_cache()
+
+
+HTTP_DRAIN_TOKENS = 32    # new tokens of each request in the drain check
+HTTP_TIMEOUT = 600        # seconds a client waits for its response
+
+
+def _p50_p95(xs):
+    xs = [x for x in xs if x is not None]
+    if not xs:
+        return None
+    import numpy as np
+
+    return {"p50": float(np.percentile(xs, 50)),
+            "p95": float(np.percentile(xs, 95)), "n": len(xs)}
+
+
+def _http(base, path, obj=None, timeout=60):
+    """(status, headers, body bytes) of one GET (``obj`` None) or POST;
+    a 4xx / 5xx answer is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    try:
+        resp = urllib.request.urlopen(urllib.request.Request(
+            base + path, data=data), timeout=timeout)
+        return resp.status, resp.headers, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def _http_client(base, prompt, n, stream, out, i):
+    """One ``POST /generate``: ``out[i]`` gets the status, the record,
+    the streamed tokens, the wall seconds and (streamed) the seconds to
+    the first token line."""
+    import urllib.request
+
+    body = {"prompt": [int(t) for t in prompt], "max_new_tokens": n,
+            "stream": stream}
+    t0 = time.perf_counter()
+    first = None
+    try:
+        resp = urllib.request.urlopen(urllib.request.Request(
+            f"{base}/generate", data=json.dumps(body).encode()),
+            timeout=HTTP_TIMEOUT)
+        if stream:
+            lines = []
+            for raw in resp:
+                if raw.strip():
+                    lines.append(json.loads(raw))
+                    if first is None and "token" in lines[-1]:
+                        first = time.perf_counter() - t0
+            rec = lines[-1]
+            toks = [x["token"] for x in lines if "token" in x]
+        else:
+            rec, toks = json.loads(resp.read()), None
+        out[i] = {"code": resp.status, "record": rec, "streamed": toks,
+                  "seconds": time.perf_counter() - t0, "client_ttft_s": first}
+    except Exception as e:  # noqa: BLE001 — reported and checked below
+        out[i] = {"code": getattr(e, "code", None), "error": repr(e)}
+
+
+def observability_write_us(n=20000):
+    """Host µs of one write of each kind a decode iteration of the
+    engine makes (per step: a counter, a histogram, an engine-lane trace
+    event; per token: a labelled counter, a histogram and a summary),
+    on instruments of their own (the serving ones stay untouched)."""
+    from paddle_tpu_torch.observability import metrics, tracing
+
+    reg = metrics.MetricsRegistry()
+    ops = {"counter_inc": reg.counter("c_total", "").inc,
+           "labelled_counter_inc":
+               lambda: reg.counter("l_total", "", ("k",)).labels(
+                   "generated").inc(),
+           "histogram_observe": lambda: reg.histogram("h", "").observe(0.04),
+           "summary_observe": lambda: reg.summary("s", "").observe(0.04),
+           "trace_complete": lambda: tracing.complete(
+               "serving.step", "engine", "probe", 0, 1, {"active": 8})}
+    out = {}
+    for name, fn in ops.items():
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter() - t0) / n * 1e6
+    tracing.clear()
+    return out
+
+
+def http_serve_phase(model, cfg, requests, kind, bf16_outputs, bf16_tps,
+                     plain_decode):
+    """The host serving stack on the card (the engine lifecycle, the
+    metrics registry, request tracing and the HTTP front end) at
+    Llama-2-7B's full width, bf16, ``serve``'s engine configuration and
+    traffic. Returns the HTTP run's K6 launches."""
+    import gc
+    import threading
+
+    import torch
+
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.observability import exporters, tracing
+    from paddle_tpu_torch.serving import (ChaosEngine, ServingConfig,
+                                          ServingEngine, ServingHTTPServer)
+
+    t_phase = time.perf_counter()
+    L = cfg.num_hidden_layers
+    name = "paged_flash_decode_attention"
+    shape = dict(max_slots=8, max_len=2048, block_size=16, prefill_chunk=256)
+
+    def fresh(**overrides):
+        return ServingEngine(model, ServingConfig(**dict(shape, **overrides)),
+                             device=DEV)
+
+    def free():
+        """Give back the device memory of the engines the caller let go
+        (each holds a pool of about 8.7 GB at this shape)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def latencies(ttft, tpot):
+        return {"ttft_s": _p50_p95(ttft), "tpot_s": _p50_p95(tpot)}
+
+    def paged_fallbacks():
+        return {k: v for k, v in da.DISPATCH_FALLBACKS.items()
+                if k.startswith("paged_")}
+
+    # 1. warmup, then the background loop over the queued traffic
+    eng = fresh()
+    da.reset_counters()
+    warm = eng.warmup()
+    check(warm["compiles"] == 0,
+          f"http_serve: warmup built {warm['compiles']} libraries after "
+          f"build_all")
+    check(da.LAUNCHES[name] == 2 * L,
+          f"http_serve: warmup launched K6 {da.LAUNCHES[name]} times, "
+          f"expected one chunk and one step a layer = {2 * L}")
+    check_bodies("http_serve warmup", da.BODY_LAUNCHES,
+                 {f"{name}/mma": L, f"{name}/qrows": L})
+    again = eng.warmup()
+    check(again["compiles"] == 0, "http_serve: a second warmup built")
+    reqs = [eng.submit(p, max_new_tokens=m) for p, m in requests]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.start()
+    outs = [r.result(timeout=HTTP_TIMEOUT) for r in reqs]
+    secs = time.perf_counter() - t0
+    eng.stop()
+    equal = sum(a == b for a, b in zip(outs, bf16_outputs))
+    check(all(r.status == "completed" for r in reqs) and
+          equal == len(reqs),
+          f"http_serve: the started engine gave {equal} of {len(reqs)} "
+          f"requests bit-equal to serve's default engine")
+    started = {"tokens_per_s": sum(map(len, outs)) / secs, "seconds": secs,
+               **latencies([r.ttft_s for r in reqs],
+                           [r.tpot_s for r in reqs])}
+    emit({"phase": "http_serve", "part": "warmup + start", "model":
+          "llama2_7b", "dtype": "bfloat16", "requests": len(reqs),
+          "warmup_wall_s": warm["wall_s"], "warmup_compiles":
+          warm["compiles"], "warmup_entries": warm["entries"],
+          "second_warmup": again, "equal_to_serve": equal,
+          "serve_tokens_per_s": bf16_tps, **started,
+          "steps": eng.stats()["steps"], "card": kind})
+    del eng, reqs
+    free()
+
+    # 2. the HTTP front end: twelve clients at once
+    eng = fresh()
+    eng.warmup()
+    srv = ServingHTTPServer(eng, port=0)
+    base = f"http://127.0.0.1:{srv.port}"
+
+    def families():
+        return exporters.parse_prometheus_text(
+            _http(base, "/metrics")[2].decode())
+
+    def sample(fams, fam, **labels):
+        return sum(s["value"] for s in fams[fam]["samples"]
+                   if all(s["labels"].get(k) == v
+                          for k, v in labels.items()))
+
+    fams0 = families()
+    ttft0 = json.loads(_http(base, "/stats")[2])[
+        "latency_digests"]["ttft_s"]["count"]
+    da.reset_counters()
+    probes, running_rows = [], []
+    done = threading.Event()
+
+    def prober():
+        while not done.is_set():
+            code, _, body = _http(base, "/healthz")
+            probes.append((code, json.loads(body)["status"]))
+            if not running_rows:
+                dbg = json.loads(_http(base, "/debug/requests")[2])
+                running_rows.extend(dbg["running"])
+            done.wait(0.05)
+
+    results = [None] * len(requests)
+    clients = [threading.Thread(target=_http_client, args=(
+        base, p, m, i % 3 == 2, results, i)) for i, (p, m) in
+        enumerate(requests)]
+    probe = threading.Thread(target=prober)
+    probe.start()
+    t0 = time.perf_counter()
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join()
+    secs = time.perf_counter() - t0
+    done.set()
+    probe.join()
+    st = eng.stats()
+    launches, bodies = dict(da.LAUNCHES), dict(da.BODY_LAUNCHES)
+    for i, ((p, m), res) in enumerate(zip(requests, results)):
+        rec = res.get("record") or {}
+        check(res.get("code") == 200 and rec.get("status") == "completed"
+              and len(rec.get("tokens", ())) == m,
+              f"http_serve: request {i} answered {res}")
+        if res["streamed"] is not None:
+            check(res["streamed"] == rec["tokens"],
+                  f"http_serve: request {i}'s stream differs from its "
+                  f"record")
+    https = [r["record"]["tokens"] for r in results]
+    gen = sum(map(len, https))
+    stalled = [s for s in probes if s[1] == "stalled"]
+    check(probes and not stalled and set(probes) <= {(200, "ok"),
+                                                     (503, "saturated")},
+          f"http_serve: /healthz during the traffic read "
+          f"{sorted(set(probes))}")
+    fams1 = families()
+    done_delta = sample(fams1, "paddle_tpu_serving_requests_total",
+                        outcome="completed") - sample(
+        fams0, "paddle_tpu_serving_requests_total", outcome="completed")
+    gen_delta = sample(fams1, "paddle_tpu_serving_tokens_total",
+                       kind="generated") - sample(
+        fams0, "paddle_tpu_serving_tokens_total", kind="generated")
+    check(done_delta == len(requests) and gen_delta == gen,
+          f"http_serve: /metrics rose by {done_delta} completed requests "
+          f"and {gen_delta} generated tokens, expected {len(requests)} "
+          f"and {gen}")
+    stats = json.loads(_http(base, "/stats")[2])
+    ttft_delta = stats["latency_digests"]["ttft_s"]["count"] - ttft0
+    check(ttft_delta == len(requests),
+          f"http_serve: /stats counted {ttft_delta} TTFTs")
+    check(running_rows and all("phase" in r and "kv_blocks" in r
+                               for r in running_rows),
+          f"http_serve: /debug/requests during the traffic: "
+          f"{running_rows[:1]}")
+    rid = results[0]["record"]["request_id"]
+    ct = json.loads(_http(base, f"/trace?trace={rid}")[2])["traceEvents"]
+    spans = {}
+    for e in ct:
+        if e["ph"] == "X":
+            spans.setdefault(e["name"], e)
+    order = ("request", "queued", "prefill", "decode")
+    check(all(n in spans for n in order) and
+          [spans[n]["ts"] for n in order] ==
+          sorted(spans[n]["ts"] for n in order) and
+          all(spans[n]["ts"] + spans[n]["dur"] <=
+              spans["request"]["ts"] + spans["request"]["dur"] + 1e-3
+              for n in order),
+          f"http_serve: request {rid}'s trace spans "
+          f"{ {n: spans.get(n) for n in order} }")
+    expect = L * (st["steps"] + st["prefill_chunks"])
+    check(launches[name] == expect,
+          f"http_serve: K6 launched {launches[name]} times, expected {L} "
+          f"x ({st['steps']} steps + {st['prefill_chunks']} chunks) = "
+          f"{expect}")
+    check_bodies("http_serve", bodies, {
+        f"{name}/mma": L * st["prefill_chunks"],
+        f"{name}/qrows": L * st["steps"]})
+    check(not paged_fallbacks(),
+          f"http_serve: paged fallbacks {paged_fallbacks()}")
+    row = {"phase": "http_serve", "part": "http", "model": "llama2_7b",
+           "dtype": "bfloat16", "requests": len(requests),
+           "streamed": sum(r["streamed"] is not None for r in results),
+           "generated_tokens": gen, "seconds": secs,
+           "tokens_per_s": gen / secs,
+           **latencies([r["record"]["ttft_s"] for r in results],
+                       [r["record"]["tpot_s"] for r in results]),
+           "client_ttft_s_streamed": _p50_p95(
+               [r["client_ttft_s"] for r in results]),
+           "client_seconds": _p50_p95([r["seconds"] for r in results]),
+           "started_engine": started, "healthz_probes": len(probes),
+           "healthz_states": sorted({s for _, s in probes}),
+           "decode_steps": st["steps"], "prefill_chunks":
+           st["prefill_chunks"], "kernel_launches": launches,
+           "kernel_bodies": bodies,
+           "requests_equal_to_serve": sum(
+               a == b for a, b in zip(https, bf16_outputs)),
+           "card": kind}
+    row.update(_teacher_forced_all(model, [p for p, _ in requests], https,
+                                   "http_serve", False))
+    emit(row)
+
+    # 3. drain with four requests in flight
+    drain_out = [None] * 4
+    clients = [threading.Thread(target=_http_client, args=(
+        base, p, HTTP_DRAIN_TOKENS, False, drain_out, i))
+        for i, (p, _) in enumerate(requests[:4])]
+    for c in clients:
+        c.start()
+    t0 = time.perf_counter()
+    while len(eng.scheduler) + eng.busy_slots() < 4:
+        check(time.perf_counter() - t0 < 60,
+              "http_serve: the drain's requests never arrived")
+        time.sleep(0.005)
+    code, _, body = _http(base, "/drain", {"timeout_s": 300}, timeout=400)
+    drained = json.loads(body)
+    for c in clients:
+        c.join()
+    hcode, _, hbody = _http(base, "/healthz")
+    gcode, _, _ = _http(base, "/generate",
+                        {"prompt": [1, 2, 3], "max_new_tokens": 2})
+    check(code == 200 and drained["drained"] is True,
+          f"http_serve: POST /drain answered {code} {drained}")
+    check(all(r["code"] == 200 and r["record"]["status"] == "completed"
+              and len(r["record"]["tokens"]) == HTTP_DRAIN_TOKENS
+              for r in drain_out),
+          f"http_serve: the drained requests ended {drain_out}")
+    hstatus = json.loads(hbody)["status"]
+    check(hcode == 503 and hstatus in ("draining", "stopped") and
+          gcode == 503, f"http_serve: after the drain /healthz "
+                        f"{hcode} {hstatus}, POST /generate {gcode}")
+    srv.stop()
+    eng.stop()
+    emit({"phase": "http_serve", "part": "drain", "in_flight": 4,
+          "drained": drained, "healthz_after": [hcode, hstatus],
+          "generate_after": gcode, "card": kind})
+    del eng, srv
+    free()
+
+    # 4. a crash and a stall on a 1-slot engine (the crash's flight dump
+    # goes to the temp dir, or $PADDLE_TPU_SINK_DIR)
+    small = dict(max_slots=1, max_len=64, block_size=16, prefill_chunk=64)
+    prompt = requests[-1][0][:24]
+    eng = ServingEngine(model, ServingConfig(**small), device=DEV)
+    eng.warmup()
+    monkey = ChaosEngine(eng).crash_after_steps(0)
+    req = eng.submit(prompt, max_new_tokens=8)
+    eng.start()
+    req.result(timeout=60)
+    ccode, cpay = eng.health()
+    check(req.status == "failed" and "chaos" in req.error and
+          (ccode, cpay["status"]) == (503, "crashed") and
+          monkey.injected["crash"] == 1,
+          f"http_serve: crash: request {req.status}, health {ccode} "
+          f"{cpay['status']}")
+    dump = tracing.last_flight_dump()
+    eng.stop()
+    eng = ServingEngine(model, ServingConfig(stall_timeout_s=0.5,
+                                             **small), device=DEV)
+    eng.warmup()
+    monkey = ChaosEngine(eng).hang_after_steps(1)
+    req = eng.submit(prompt, max_new_tokens=16)
+    eng.start()
+    t0 = time.perf_counter()
+    while eng.health()[1]["status"] != "stalled":
+        check(time.perf_counter() - t0 < 30,
+              f"http_serve: the hung loop never read stalled "
+              f"({eng.health()[1]['status']})")
+        time.sleep(0.02)
+    stalled_after = time.perf_counter() - t0
+    spay = eng.health()[1]
+    monkey.release()
+    req.result(timeout=60)
+    t0 = time.perf_counter()
+    while eng.health()[0] != 200:
+        check(time.perf_counter() - t0 < 10,
+              f"http_serve: after the release health reads "
+              f"{eng.health()[1]['status']}")
+        time.sleep(0.01)
+    check(req.status == "completed" and len(req.output_tokens) == 16,
+          f"http_serve: the released request ended {req.status}")
+    eng.stop()
+    emit({"phase": "http_serve", "part": "crash and stall",
+          "crashed": cpay["crashed"], "flight_dump": dump,
+          "stalled_payload": {k: spay[k] for k in ("status", "stalled_s",
+                                                   "slots_busy")},
+          "seconds_to_stalled": stalled_after, "card": kind})
+    del eng, monkey, req
+    free()
+
+    # 5. the host cost of observability: the decode iteration of eight
+    # slots in alternating windows of ten steps, tracing on and off; and
+    # the host time of one write of each kind the iteration makes
+    eng = fresh()
+    eng.warmup()
+    for p, m in requests[:8]:
+        eng.submit(p, max_new_tokens=m)
+    while eng.scheduler.depth or any(j is not None for j in eng._jobs):
+        eng.step()
+    walls = {"on": [], "off": []}
+    try:
+        for mode in ("on", "off") * 3:
+            (tracing.enable_tracing if mode == "on"
+             else tracing.disable_tracing)()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                eng.step()
+            torch.cuda.synchronize()
+            walls[mode].append((time.perf_counter() - t0) / 10 * 1e3)
+    finally:
+        tracing.enable_tracing()
+    on, off = (sum(walls[k]) / len(walls[k]) for k in ("on", "off"))
+    emit({"phase": "http_serve", "part": "tracing cost", "slots": 8,
+          "decode_iteration_wall_ms": walls, "tracing_on_ms": on,
+          "tracing_off_ms": off, "tracing_cost_ms": on - off,
+          "profile_decode_wall_ms": plain_decode["wall_ms"],
+          "host_us_per_write": observability_write_us(),
+          "card": kind})
+    eng.stop(abort=True)
+    del eng
+    free()
+    emit({"phase": "http_serve", "part": "done",
+          "phase_seconds": time.perf_counter() - t_phase})
+    return {name: launches[name]}
 
 
 def _full_accept(n_new, depth):
@@ -3863,7 +4304,7 @@ def conv_summary(conv_rows, infer_launches, resnet_train_launches):
 
 def summary(rows, serve_launches, gen_launches, flash_rows,
             train_launches, quant_rows, quant_launches, tree_rows,
-            spec_launches, gpt_rows, gpt_launches):
+            spec_launches, gpt_rows, gpt_launches, http_launches):
     """One object per kernel, with the numbers of its main-path shape:
     for K1-K3 the training shape, for K4-K7 the decode step (bf16, group
     1 as in Llama-2-7B; int8 for K5/K7), for K8 the [2, 2] tree's verify
@@ -3871,7 +4312,8 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
     from the tree [2,2] lanes), for K9 q_proj's weight in int8
     at a decode step of 8 slots. The decode kernels and K9 add
     ``gpt_launches`` (the GPT path's runs) and ``gpt``: the row at GPT-3
-    1.3B's shape (K9: q_proj, 2048 x 2048, int8, M 8)."""
+    1.3B's shape (K9: q_proj, 2048 x 2048, int8, M 8). K6 adds
+    ``http_launches``: its launches over the HTTP front end's run."""
     out = []
     for name, (tag, replaces) in FLASH_META.items():
         mine = [r for r in flash_rows if r["name"] == name]
@@ -3989,6 +4431,8 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
         gmain.pop("pool", None)
         g = pick([r for r in gpt_rows if r["name"] == name], gmain)
         entry["gpt_launches"] = m["gpt_launches"].get(name, 0)
+        if name in http_launches:
+            entry["http_launches"] = http_launches[name]
         entry["gpt"] = {k: g[k] for k in (
             "B", "q_len", "M", "N", "K", "body", "ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by", "max_abs_err") if k in g}
@@ -4090,6 +4534,10 @@ def main(argv=None) -> int:
                           "sampled_outputs": {"bf16_sampled":
                                               sampled_outputs}}, kind)
     spec_profile_phase(model, requests, kind, plain_decode)
+    # the host serving stack: warmup + the loop thread, the HTTP front
+    # end, drain, crash and stall, the cost of tracing
+    http_launches = http_serve_phase(model, cfg, requests, kind,
+                                     bf16_outputs, bf16_tps, plain_decode)
     model.float()
     torch.cuda.empty_cache()
     _, _, fp32_tps = serve_phase(model, cfg, requests, kind, strict=True)
@@ -4119,7 +4567,7 @@ def main(argv=None) -> int:
     emit({"kernels": summary(rows, serve_launches, gen_launches, flash_rows,
                              train_launches, quant_rows, quant_launches,
                              tree_rows, spec_launches, gpt_rows,
-                             gpt_launches) + conv_kernels})
+                             gpt_launches, http_launches) + conv_kernels})
     emit(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

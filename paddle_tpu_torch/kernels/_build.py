@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["load_library", "build_all"]
+__all__ = ["load_library", "build_all", "total_builds"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -64,6 +64,7 @@ SOURCES = {
 
 _lock = threading.Lock()
 _libs: dict = {}
+_builds = [0]   # nvcc runs of this process
 
 
 def _nvcc() -> str:
@@ -135,6 +136,7 @@ def _finish(source: str, out: str, started) -> None:
         raise RuntimeError(
             f"nvcc failed to build {source} (exit {proc.returncode}):\n{err}")
     os.replace(tmp, out)
+    _builds[0] += 1
     with open(out + ".ptxas.txt", "w") as fh:
         fh.write(err)
 
@@ -161,6 +163,12 @@ def build_all() -> dict:
                 fn.restype = ctypes.c_int
             _libs[s] = lib
         return dict(_libs)
+
+
+def total_builds() -> int:
+    """Libraries this process has built with nvcc (a library found
+    already built on disk is loaded, not counted)."""
+    return _builds[0]
 
 
 def load_library(source: str):

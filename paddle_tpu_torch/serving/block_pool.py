@@ -164,9 +164,9 @@ class BlockPool:
             }
 
     def _set_gauges(self):  # holds-lock: _lock
-        _sm.set_gauge("kv_blocks_total", self.usable_blocks)
-        _sm.set_gauge("kv_blocks_in_use", self._used_unlocked())
-        _sm.set_gauge("kv_blocks_shared", self._shared_unlocked())
+        _sm.kv_blocks_total.set(self.usable_blocks)
+        _sm.kv_blocks_in_use.set(self._used_unlocked())
+        _sm.kv_blocks_shared.set(self._shared_unlocked())
 
 
 class PrefixCache:
@@ -265,7 +265,9 @@ class PrefixCache:
                     del self._map[key]
                     self.pool.decref(bid)
                     freed += 1
-                    _sm.inc("prefix_cache_evictions")
+                    # no KV tier below the pool: an evicted block is
+                    # freed outright
+                    _sm.prefix_cache_evictions.labels("dropped").inc()
         return freed
 
     def stats(self) -> dict:

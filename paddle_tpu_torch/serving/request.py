@@ -1,10 +1,18 @@
 """Serving requests: sampling params, lifecycle states, and the handle
 callers hold while the engine decodes (counterpart of
-``paddle_tpu/serving/request.py``, without its tracing hooks).
+``paddle_tpu/serving/request.py``).
+
+A ``Request`` is both the scheduler's queue entry and the caller-facing
+handle: ``result()`` blocks until the request finishes, ``stream()``
+iterates tokens as the engine lands them, ``cancel()`` asks the
+scheduler/engine to drop it. Each request records its lifecycle as
+trace spans (``request`` root, ``queued`` / ``prefill`` / ``decode``
+children, instants for the transitions) on the port's tracer.
 """
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import queue
 import threading
@@ -12,10 +20,31 @@ import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
-__all__ = ["SamplingParams", "Request", "RequestStatus", "PRIORITY_CLASSES"]
+import numpy as np
+
+from ..observability import tracing as _tracing
+
+__all__ = ["SamplingParams", "Request", "RequestStatus", "PRIORITY_CLASSES",
+           "request_fingerprint"]
 
 # priority classes, LOWEST first: the shed order under queue pressure
 PRIORITY_CLASSES = ("batch", "interactive")
+
+
+def request_fingerprint(prompt, params: "SamplingParams") -> str:
+    """Deterministic identity of a request's WORK: a short hex digest
+    over the prompt tokens and every decode knob that reaches the step.
+    Two submissions of the same prompt and parameters share it across
+    retries, replicas and engine restarts (what a poison-request
+    quarantine keys on). Priority and deadline are left out: they change
+    scheduling, not the work. Equal to the JAX package's digest."""
+    h = hashlib.sha256()
+    h.update(np.asarray(prompt, np.int32).tobytes())
+    h.update(repr((params.max_new_tokens, params.do_sample,
+                   params.temperature, params.top_k, params.top_p,
+                   params.eos_token_id, params.seed,
+                   params.spec_k)).encode())
+    return h.hexdigest()[:16]
 
 
 class RequestStatus:
@@ -84,6 +113,11 @@ class Request:
                  deadline_s: Optional[float] = None,
                  on_token: Optional[Callable[["Request", int], None]] = None):
         self.id = next(_ids)
+        # trace identity: a propagated trace id (a traceparent header or
+        # the caller's trace_context at submit) when one is active on the
+        # constructing thread, else the local request id
+        _ctx = _tracing.current_trace()
+        self.trace = _ctx if _ctx is not None else self.id
         self.prompt = prompt  # np.int32 [L]
         self.params = params
         self.arrival_ts = time.perf_counter()
@@ -109,18 +143,58 @@ class Request:
         # request and accepted by the target, over all its rounds
         self.spec_drafted = 0
         self.spec_accepted = 0
-        # preemption state: (tokens_to_prefill, n_reselected) set when the
-        # request is requeued for recompute; the generated tokens fold into
-        # the next prefill and the final select's re-derived token is
-        # skipped, never re-delivered
+        # request-lifecycle trace: one root span for the whole life plus
+        # named child spans the engine opens and closes (queued, prefill,
+        # decode); finish() closes whatever is still open, so every
+        # terminal path leaves a complete, nested trace
+        ts0 = int(self.arrival_ts * 1e9)
+        self._root_span = _tracing.begin_span(
+            "request", cat="request", trace=self.trace,
+            args={"prompt_len": int(prompt.shape[0]),
+                  "max_new_tokens": params.max_new_tokens,
+                  "do_sample": params.do_sample}, ts_ns=ts0)
+        self._open_spans = {}
+        self._tr_begin("queued", ts_ns=ts0)
+        # preemption state: (tokens_to_prefill, prng_key, n_reselected)
+        # set when the request is requeued for recompute; the generated
+        # tokens fold into the next prefill and the final select's
+        # re-derived token is skipped, never re-delivered
         self._resume = None
+        self._fingerprint: Optional[str] = None
         self._done = threading.Event()
         self._stream_q: "queue.Queue" = queue.Queue()
+
+    @property
+    def fingerprint(self) -> str:
+        fp = self._fingerprint
+        if fp is None:
+            fp = self._fingerprint = request_fingerprint(self.prompt,
+                                                         self.params)
+        return fp
 
     @property
     def priority(self) -> str:
         return self.params.priority
 
+    # -- tracing -------------------------------------------------------------
+    def _tr_begin(self, name: str, ts_ns: Optional[int] = None, **args):
+        """Open a named lifecycle span (engine thread). Idempotent per
+        name: re-beginning an open span is a no-op."""
+        if name not in self._open_spans:
+            self._open_spans[name] = _tracing.begin_span(
+                name, cat="request", trace=self.trace, args=args or None,
+                ts_ns=ts_ns)
+
+    def _tr_end(self, name: str, **args):
+        sp = self._open_spans.pop(name, None)
+        if sp is not None:
+            _tracing.end_span(sp, args=args or None)
+
+    def _tr_event(self, name: str, ts_ns: Optional[int] = None, **args):
+        _tracing.instant(name, cat="request", trace=self.trace,
+                         args=args or None, ts_ns=ts_ns)
+
+    # -- engine side ---------------------------------------------------------
     def push_token(self, token: int, now: float):
         """Engine side: deliver one generated token."""
         self.output_tokens.append(token)
@@ -141,6 +215,17 @@ class Request:
         self.status = status
         self.error = error
         self.finish_ts = time.perf_counter()
+        # close the trace: open lifecycle spans end here, the terminal
+        # status lands as an instant, and the root span closes last so
+        # children stay inside it
+        end_ns = int(self.finish_ts * 1e9)
+        for name in list(self._open_spans):
+            _tracing.end_span(self._open_spans.pop(name), ts_ns=end_ns)
+        self._tr_event(status, ts_ns=end_ns,
+                       generated=len(self.output_tokens),
+                       **({"error": error} if error else {}))
+        _tracing.end_span(self._root_span, ts_ns=end_ns,
+                          args={"status": status})
         self._stream_q.put(_STOP)
         self._done.set()
 
@@ -192,14 +277,15 @@ class Request:
         return (self.last_token_ts - self.first_token_ts) / n
 
     def debug_row(self) -> dict:
-        """One row of a live request table."""
+        """One row of the ``/debug/requests`` live state table."""
         now = time.perf_counter()
         return {
             "request_id": self.id,
+            "trace": self.trace,
             "status": self.status,
             "priority": self.params.priority,
             "slot": self.slot,
-            "prompt_len": int(len(self.prompt)),
+            "prompt_len": int(self.prompt.shape[0]),
             "generated": len(self.output_tokens),
             "max_new_tokens": self.params.max_new_tokens,
             "age_s": round(now - self.arrival_ts, 4),
@@ -214,6 +300,9 @@ class Request:
             "spec_accept_rate": (round(self.spec_accepted
                                        / self.spec_drafted, 4)
                                  if self.spec_drafted else None),
+            "deadline_in_s": (round(self.deadline_ts - now, 4)
+                              if self.deadline_ts is not None
+                              and self.finish_ts is None else None),
             "latency_s": (round(self.finish_ts - self.arrival_ts, 4)
                           if self.finish_ts is not None else None),
             "error": self.error,

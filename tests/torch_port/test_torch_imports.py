@@ -56,7 +56,17 @@ def test_importing_the_port_leaves_jax_out():
             "paddle_tpu_torch.nn.functional, "
             "paddle_tpu_torch.nn.layers_conv_norm, "
             "paddle_tpu_torch.nn.layout, paddle_tpu_torch.vision, "
-            "paddle_tpu_torch.vision.models.resnet; "
+            "paddle_tpu_torch.vision.models.resnet, "
+            "paddle_tpu_torch.observability, "
+            "paddle_tpu_torch.observability.metrics, "
+            "paddle_tpu_torch.observability.exporters, "
+            "paddle_tpu_torch.observability.tracing, "
+            "paddle_tpu_torch.observability.fleet, "
+            "paddle_tpu_torch.serving.http, paddle_tpu_torch.serving.chaos, "
+            "paddle_tpu_torch.serving.engine, "
+            "paddle_tpu_torch.serving.request, "
+            "paddle_tpu_torch.serving.scheduler, "
+            "paddle_tpu_torch.serving.metrics; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; "
             "assert not bad, bad")

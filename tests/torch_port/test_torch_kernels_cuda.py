@@ -1348,3 +1348,60 @@ def test_weight_only_linear_with_bias_on_the_card(M, fmt):
     want = tqm.quant_matmul_ref(x, w, scale) + bias
     torch.testing.assert_close(got.float(), want.float(),
                                atol=ATOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.cuda
+def test_started_engine_on_the_card_equals_run_until_idle():
+    """A small bf16 Llama engine on the card (head_dim 64, the paged
+    kernel's path), warmed up then started: its tokens equal a
+    synchronous engine's bit for bit, a second ``warmup()`` builds
+    nothing, and the loop thread, whose grad mode is on as in any new
+    thread, builds no autograd graph in any program it runs."""
+    require_cuda()
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+
+    torch.manual_seed(0)
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                           max_position_embeddings=256)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16).eval()
+    rng = np.random.RandomState(14)
+    prompts = [rng.randint(1, cfg.vocab_size, n) for n in (5, 40, 70, 9)]
+    params = [dict(max_new_tokens=12), dict(max_new_tokens=20),
+              dict(max_new_tokens=9, do_sample=True, top_k=20, seed=4),
+              dict(max_new_tokens=15)]
+    kw = dict(max_slots=2, max_len=128, block_size=16, prefill_chunk=32)
+    sync = ServingEngine(model, device="cuda", **kw)
+    reqs = [sync.submit(p, **pk) for p, pk in zip(prompts, params)]
+    sync.run_until_idle()
+    want = [r.output_tokens for r in reqs]
+
+    eng = ServingEngine(model, device="cuda", **kw)
+    tda.reset_counters()
+    info = eng.warmup()
+    assert info["entries"] == ["serving.prefill_chunk", "serving.cow",
+                               "serving.step"]
+    # one chunk and one step a layer, each on its kernel body
+    L = cfg.num_hidden_layers
+    assert tda.LAUNCHES["paged_flash_decode_attention"] == 2 * L
+    assert eng.warmup()["compiles"] == 0
+    seen = []
+    for name in ("_chunk", "_step"):
+        orig = getattr(eng, name)
+
+        def spy(*a, _orig=orig, _name=name, **k):
+            out = _orig(*a, **k)
+            seen.append((_name, torch.is_grad_enabled(), out is not None
+                         and out.requires_grad,
+                         eng._pos.requires_grad, eng._tokens.requires_grad))
+            return out
+
+        setattr(eng, name, spy)
+    reqs = [eng.submit(p, **pk) for p, pk in zip(prompts, params)]
+    eng.start()
+    got = [r.result(timeout=120) for r in reqs]
+    eng.stop()
+    assert got == want
+    assert {s[0] for s in seen} == {"_chunk", "_step"}
+    assert not any(any(s[1:]) for s in seen), seen
+    assert eng.health()[1]["status"] == "stopped"

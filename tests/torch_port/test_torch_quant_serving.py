@@ -189,7 +189,7 @@ def test_quantized_engines_and_generate_agree_token_for_token(fmt):
     for key in ("kv_format", "bytes_per_token", "effective_capacity_tokens",
                 "capacity_vs_bf16", "internal_fragmentation_tokens"):
         assert ts["kv_blocks"][key] == js[key], key
-    assert tsm.GAUGES[f"kv_bytes_per_token:{fmt}"] == js["bytes_per_token"]
+    assert tsm.kv_bytes_per_token.labels(fmt).value() == js["bytes_per_token"]
     for p, n, got in zip(prompts, new, outs["torch"]):
         ref = tm.generate(p[None], max_new_tokens=n,
                           kv_format=fmt)[0, len(p):].tolist()

@@ -219,8 +219,9 @@ def test_coupled_draft_accepts_full_depth():
                                  draft_model=tgen.truncated_draft(target, 2),
                                  max_slots=1, max_len=128, spec_tree=[2, 2])
     p = _prompts(cfg, (7,), SEED + 6)[0]
-    before = dict(sm.COUNTERS)
-    n_depth = sm.digest("spec_accept_depth")["count"]
+    nodes = ("spec_tree_nodes_drafted", "spec_tree_nodes_accepted")
+    before = {key: getattr(sm, key).value() for key in nodes}
+    n_depth = sm.spec_accept_depth._d().snapshot()[2]
     r = eng.submit(p, max_new_tokens=16)
     eng.run_until_idle()
     assert r.output_tokens == _plain(target, p, 16)
@@ -228,12 +229,11 @@ def test_coupled_draft_accepts_full_depth():
     assert st["accept_len"]["p50"] == 2.0
     assert st["tree"]["mean_accepted_path_len"] == 3.0
     assert st["rounds"] < 16
-    # the node counters and the depth digest move with the request's own
-    # accounting, and its debug row reports it
-    for key, want in (("spec_tree_nodes_drafted", r.spec_drafted),
-                      ("spec_tree_nodes_accepted", r.spec_accepted)):
-        assert sm.COUNTERS[key] - before.get(key, 0) == want > 0
-    assert sm.digest("spec_accept_depth")["count"] - n_depth \
+    # the node counters and the depth histogram move with the request's
+    # own accounting, and its debug row reports it
+    for key, want in zip(nodes, (r.spec_drafted, r.spec_accepted)):
+        assert getattr(sm, key).value() - before[key] == want > 0
+    assert sm.spec_accept_depth._d().snapshot()[2] - n_depth \
         == st["accept_len"]["count"]
     row = r.debug_row()
     assert (row["spec_drafted"], row["spec_accepted"]) == \
