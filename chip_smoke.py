@@ -174,6 +174,35 @@ Phases, each printing JSON lines (and failing loudly on any check):
    injected hang reads ``stalled`` (0.5 s) and, released, completes and
    reads ``ok``. Last, the decode iteration's wall ms with tracing on
    and off (alternating windows of ten) beside the ``profile`` line's.
+   ``router_serve``: the stack above the engine on the same bf16 model:
+   two ``EngineSupervisor`` replicas of ``serve``'s shape over the one
+   model. In
+   process behind a ``Router`` (auto_warmup: 0 builds): the 12
+   requests at once, all completed, each ``stream()`` equal to its
+   ``result()``, both replicas serving, K6 exactly layers x (steps +
+   chunks of every engine) + 2 x layers a warmup, by body, no fallback;
+   tokens/s, TTFT / TPOT p50 and p95 beside ``serve``'s and
+   ``http_serve``'s started engine, bit-equality to ``serve`` and the
+   teacher-forced agreement reported. The three fault parts run the
+   traffic's prompts at ``ROUTER_FAULT_TOKENS`` new tokens at most. A
+   warm restart of r0's engine
+   after ``ROUTER_RESTART_STEP`` decode steps: one restart, 0 builds, no
+   router retry, r1 never ``stalled``, memory back within 1 GB; its
+   wall. A crash storm on r0 (``max_restarts=1``): breaker open, r0
+   ejected by the prober, its requests retried on r1 within the
+   amplification cap, the router's ``/healthz`` 200 throughout. A poison
+   request armed on both replicas: failed with the marker after two
+   crashes on one replica (implicated alone both times), refused on
+   resubmit, the other 11 complete. Over HTTP (two
+   ``ServingHTTPServer``s, two ``HTTPReplica``s, ``RouterHTTPServer``):
+   12 clients (every second streamed) all 200, streams equal to records,
+   ``/healthz`` never ``stalled``, ``/replicas``, federated ``/metrics``
+   (each replica series and the ``fleet`` roll-up rise by the traffic:
+   the two replicas share this process's registry), ``/slo``, a merged
+   ``/trace``, a poisoned request answered 400 ``quarantined`` twice,
+   then ``request_preemption()`` drains the fleet with four requests in
+   flight. Last, fp32 at full width and depth 2 through a warm restart
+   of r0 and r1's breaker: every request bit-equal to one engine.
 6. ``serve_quant``: the same seeded Llama-2-7B converted by
    ``convert_for_serving`` to int8 weight-only linears and served with
    int8 KV blocks over the same 12 requests. Checks: every request
@@ -260,7 +289,8 @@ Phases, each printing JSON lines (and failing loudly on any check):
    chunk and K8 its [4, 2, 2] verify under ``bundle``; the decode
    kernels and K9 add ``gpt_launches`` (the GPT path's runs) and
    ``gpt`` (the row at GPT-3 1.3B's shape), K6 ``http_launches`` (its
-   launches through the HTTP front end); then the card's
+   launches through the HTTP front end) and ``router_launches``
+   (through the two replicas' router); then the card's
    nvidia-smi line;
    the last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -1057,7 +1087,8 @@ def check_serve(tag, requests, reqs, st, launches, fallbacks, bodies, L,
 
 def serve_phase(model, cfg, requests, kind, strict):
     """Both engines (default pool, then 60% of it) over the traffic.
-    Returns the default engine's launch counts and outputs."""
+    Returns the default engine's launch counts, outputs, tokens/s and
+    tokens/s with TTFT / TPOT p50 and p95."""
     import torch
 
     L = cfg.num_hidden_layers
@@ -1084,7 +1115,10 @@ def serve_phase(model, cfg, requests, kind, strict):
                "prefix_cache": st["prefix_cache"],
                "prompt_tokens": sum(len(p) for p, _ in requests),
                "generated_tokens": gen, "seconds": secs,
-               "tokens_per_s": gen / secs, "kernel_launches": launches,
+               "tokens_per_s": gen / secs,
+               "ttft_s": _p50_p95([r.ttft_s for r in reqs]),
+               "tpot_s": _p50_p95([r.tpot_s for r in reqs]),
+               "kernel_launches": launches,
                "kernel_bodies": bodies, "fallbacks": fallbacks, "card": kind}
         del eng
         torch.cuda.empty_cache()
@@ -1097,7 +1131,8 @@ def serve_phase(model, cfg, requests, kind, strict):
         emit(row)
         if label == "default":
             main_launches, tps = launches, row["tokens_per_s"]
-    return main_launches, out["default"], tps
+            perf = {k: row[k] for k in ("tokens_per_s", "ttft_s", "tpot_s")}
+    return main_launches, out["default"], tps, perf
 
 
 # the sampled profile's requests: every slot samples with nucleus 0.9
@@ -1880,7 +1915,8 @@ def http_serve_phase(model, cfg, requests, kind, bf16_outputs, bf16_tps,
     """The host serving stack on the card (the engine lifecycle, the
     metrics registry, request tracing and the HTTP front end) at
     Llama-2-7B's full width, bf16, ``serve``'s engine configuration and
-    traffic. Returns the HTTP run's K6 launches."""
+    traffic. Returns the HTTP run's K6 launches and the started engine's
+    and the HTTP run's tokens/s, TTFT and TPOT."""
     import gc
     import threading
 
@@ -2203,7 +2239,590 @@ def http_serve_phase(model, cfg, requests, kind, bf16_outputs, bf16_tps,
     free()
     emit({"phase": "http_serve", "part": "done",
           "phase_seconds": time.perf_counter() - t_phase})
-    return {name: launches[name]}
+    return {name: launches[name]}, {
+        "started": {k: started[k] for k in ("tokens_per_s", "ttft_s",
+                                            "tpot_s")},
+        "http": {k: row[k] for k in ("tokens_per_s", "ttft_s", "tpot_s")}}
+
+
+ROUTER_CRASH_STEP = 8     # r0 decode steps before the storm is armed
+# new tokens a request at most in the restart, failover and poison
+# parts: their checks hold at any length, and each suspect of a crash
+# replays alone (as a probe) through its prompt and its tokens so far
+ROUTER_FAULT_TOKENS = 48
+# r0 decode steps before its warm restart: late in those requests, so
+# the suspects have few tokens left
+ROUTER_RESTART_STEP = 40
+# the phase's pollers: /healthz probes every 0.1 s; a wait for an
+# engine's state reads a counter every 20 ms (``stats()`` at 200 Hz took
+# enough of the GIL from the loop threads to double a part's wall time)
+ROUTER_POLL_S = 0.1
+ROUTER_POISON = 24        # prompt tokens of the poisoned request
+ROUTER_FP32_TOKENS = 32   # new tokens a request in the fp32 check
+
+
+def _wait(cond, what, timeout=HTTP_TIMEOUT, every=0.02):
+    """Poll ``cond`` until it holds; fail the phase after ``timeout``."""
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout,
+              f"router_serve: timed out waiting for {what}")
+        time.sleep(every)
+
+
+def _router_fleet(model, shape, sups_kw, engines):
+    """Supervisors of ``model`` on the card (``sups_kw``: one dict of
+    supervisor options a replica) with every engine they ever build
+    appended to ``engines``."""
+    from paddle_tpu_torch.serving import EngineSupervisor, ServingConfig
+
+    sups = []
+    for kw in sups_kw:
+        sup = EngineSupervisor(model, ServingConfig(**shape), device=DEV,
+                               **kw)
+        engines.append(sup.engine)
+        sup.add_rebuild_hook(engines.append)
+        sups.append(sup)
+    return sups
+
+
+def _router_launches(tag, engines, L, dname):
+    """K6 launched exactly layers x (decode steps + prefill chunks) of
+    every engine that lived, plus one chunk and one step a layer for
+    each warmup, split by body, with no paged fallback (the counts since
+    the caller's ``reset_counters``). Returns the counts."""
+    from paddle_tpu_torch.kernels import decode_attention as da
+
+    name = "paged_flash_decode_attention"
+    launches, bodies = dict(da.LAUNCHES), dict(da.BODY_LAUNCHES)
+    steps = sum(e.stats()["steps"] for e in engines)
+    chunks = sum(e.stats()["prefill_chunks"] for e in engines)
+    warm = sum(e.warmed_up for e in engines)
+    expect = L * (steps + chunks + 2 * warm)
+    check(launches[name] == expect,
+          f"{tag}: K6 launched {launches[name]} times, expected {L} x "
+          f"({steps} steps + {chunks} chunks + 2 x {warm} warmups) = "
+          f"{expect}")
+    chunk, step = ("mma", "qrows") if dname == "bfloat16" \
+        else ("tiled", "rows")
+    check_bodies(tag, bodies, {f"{name}/{chunk}": L * (chunks + warm),
+                               f"{name}/{step}": L * (steps + warm)})
+    paged_fb = {k: v for k, v in da.DISPATCH_FALLBACKS.items()
+                if k.startswith("paged_")}
+    check(not paged_fb, f"{tag}: paged fallbacks {paged_fb}")
+    return {"launches": launches[name], "steps": steps, "chunks": chunks,
+            "warmups": warm, "engines": len(engines),
+            "bodies": {k: v for k, v in bodies.items() if v}}
+
+
+def router_serve_phase(model, cfg, requests, kind, bf16_outputs, refs):
+    """The serving stack above the engine on the card: two supervised
+    replicas of the bf16 Llama-2-7B (``serve``'s engine shape, one
+    shared model) behind a ``Router``, in process and over HTTP, with a
+    warm restart, a failover, a poison quarantine and the SIGTERM drain;
+    then an fp32 depth-2 run through a restart and a failover, asserted
+    bit-equal to one engine. ``refs``: ``serve``'s and ``http_serve``'s
+    numbers from this call, reported beside the router's. Returns the
+    in-process run's K6 launches."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.fault_tolerance.preemption import (
+        clear_preemption, request_preemption, uninstall_preemption_handler)
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.observability import exporters
+    from paddle_tpu_torch.serving import (
+        HTTPReplica, LocalReplica, PoisonedRequestError, Router, RouterConfig,
+        RouterHTTPServer, SamplingParams, ServingConfig, ServingEngine,
+        ServingHTTPServer, SupervisedChaos, install_sigterm_drain,
+        request_fingerprint, uninstall_sigterm_drain)
+    from paddle_tpu_torch.serving.router_http import router_health
+    from paddle_tpu_torch.serving.supervisor import POISON_MARKER
+
+    t_phase = time.perf_counter()
+    builds0 = _build.total_builds()
+    L = cfg.num_hidden_layers
+    name = "paged_flash_decode_attention"
+    shape = dict(max_slots=8, max_len=2048, block_size=16, prefill_chunk=256)
+    prompts = [p for p, _ in requests]
+    engines = []
+
+    def free():
+        engines.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def latencies(rrs):
+        return {"ttft_s": _p50_p95([r.ttft_s for r in rrs]),
+                "tpot_s": _p50_p95([r.tpot_s for r in rrs])}
+
+    def in_process(sups, **router_kw):
+        da.reset_counters()
+        router = Router([LocalReplica(s, f"r{i}")
+                         for i, s in enumerate(sups)],
+                        RouterConfig(seed=0, **router_kw))
+        return router.start()
+
+    def run(router, reqs=requests):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rrs = [router.submit(p, max_new_tokens=m) for p, m in reqs]
+        return rrs, t0
+
+    def same(outs, ref):
+        """Requests whose tokens equal ``ref``'s (its first as many)."""
+        return sum(a == b[:len(a)] for a, b in zip(outs, ref))
+
+    def finish(tag, rrs, t0, reqs=requests):
+        outs = [rr.result(timeout=HTTP_TIMEOUT) for rr in rrs]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for i, (rr, (_, m)) in enumerate(zip(rrs, reqs)):
+            streamed = list(rr.stream(timeout=5))
+            check(rr.status == "completed" and len(outs[i]) == m and
+                  streamed == outs[i],
+                  f"{tag}: request {i} ended {rr.status} ({rr.error}) with "
+                  f"{len(outs[i])} of {m} tokens, stream {len(streamed)}")
+        gen = sum(map(len, outs))
+        return outs, {"seconds": secs, "generated_tokens": gen,
+                      "tokens_per_s": gen / secs, **latencies(rrs)}
+
+    # 1. two supervised replicas in process: auto_warmup builds nothing
+    sups = _router_fleet(model, shape, [{}, {}], engines)
+    router = in_process(sups)
+    check(_build.total_builds() == builds0,
+          "router_serve: auto_warmup built a kernel library")
+    check(all(s.warmed_up for s in sups), "router_serve: a cold replica")
+    rrs, t0 = run(router)
+    outs, perf = finish("router_serve in process", rrs, t0)
+    served = sorted({rr.replica for rr in rrs})
+    check(served == ["r0", "r1"],
+          f"router_serve: replicas that served: {served}")
+    k6 = _router_launches("router_serve in process", engines, L, "bfloat16")
+    router.stop(drain=True, timeout_s=60)
+    row = {"phase": "router_serve", "part": "in process", "model":
+           "llama2_7b", "dtype": "bfloat16", "replicas": 2,
+           "requests": len(rrs), "per_replica": {
+               r: sum(rr.replica == r for rr in rrs) for r in served},
+           "retries": sum(rr.retries for rr in rrs), **perf,
+           "k6": k6,
+           "equal_to_serve": sum(a == b for a, b in zip(outs, bf16_outputs)),
+           "serve": refs["serve"], "http_serve_started": refs["started"],
+           "card": kind}
+    row.update(_teacher_forced_all(model, prompts, outs, "router_serve",
+                                   False))
+    emit(row)
+    router_launches = {name: k6["launches"]}
+    del router, sups, rrs
+    free()
+
+    faulty = [(p, min(m, ROUTER_FAULT_TOKENS)) for p, m in requests]
+
+    # 2. a warm restart of r0's engine mid-decode, absorbed by its
+    # supervisor (the survivor r1 is polled for stalls meanwhile)
+    sups = _router_fleet(model, shape, [{}, {}], engines)
+    chaos = SupervisedChaos(sups[0])
+    router = in_process(sups)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    states, done = [], threading.Event()
+
+    def poll_survivor():
+        while not done.is_set():
+            states.append(sups[1].health()[1]["status"])
+            done.wait(ROUTER_POLL_S)
+
+    poller = threading.Thread(target=poll_survivor)
+    poller.start()
+    rrs, t0 = run(router, faulty)
+    _wait(lambda: sups[0].engine._steps >= ROUTER_RESTART_STEP,
+          "r0's decode steps")
+    decoding = sum(sups[0].engine._decoding)
+    chaos.current.crash_after_steps(0)
+    _wait(lambda: sups[0].restarts == 1 and not sups[0].restarting,
+          "the warm restart")
+    mem_restart = torch.cuda.memory_allocated()
+    outs, perf = finish("router_serve restart", rrs, t0, faulty)
+    done.set()
+    poller.join()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    st = router.stats()
+    k6 = _router_launches("router_serve restart", engines, L, "bfloat16")
+    sup_st = sups[0].supervisor_stats()
+    check(chaos.injected["crash"] == 1 and sup_st["restarts"] == 1 and
+          not sup_st["broken"] and decoding >= 1,
+          f"router_serve: restart: injected {chaos.injected}, "
+          f"{decoding} decoding slots at the crash, supervisor {sup_st}")
+    check(_build.total_builds() == builds0,
+          "router_serve: the restart's warmup built a kernel library")
+    check(st["extra_attempts"] == 0 and all(rr.retries == 0 for rr in rrs),
+          f"router_serve: the router retried through a supervised restart "
+          f"({st['extra_attempts']} extra attempts)")
+    check(abs(mem1 - mem0) < 2**30,
+          f"router_serve: memory {mem1} bytes after the restart, {mem0} "
+          f"before the crash")
+    check("stalled" not in states,
+          f"router_serve: r1 read {sorted(set(states))} during r0's restart")
+    router.stop(drain=True, timeout_s=60)
+    emit({"phase": "router_serve", "part": "warm restart",
+          "restart_wall_s": sups[0]._last_restart_s,
+          "decoding_slots_at_crash": decoding,
+          "supervisor": {k: sup_st[k] for k in (
+              "crashes", "restarts", "restarts_in_window", "implicated")},
+          "memory_allocated": {"before_crash": mem0,
+                               "at_restart": mem_restart, "after": mem1},
+          "survivor_health_states": sorted(set(states)),
+          "extra_attempts": st["extra_attempts"], **perf, "k6": k6,
+          "new_tokens_at_most": ROUTER_FAULT_TOKENS,
+          "equal_to_serve": same(outs, bf16_outputs), "card": kind})
+    del router, sups, chaos, rrs
+    free()
+
+    # 3. r0's breaker opens under a crash storm: the prober ejects it,
+    # the requests it held are retried on r1, /healthz stays 200
+    storm = threading.Event()
+    sups = _router_fleet(model, shape, [{"max_restarts": 1}, {}], engines)
+    chaos = SupervisedChaos(sups[0], arm=lambda m: m.crash_storm(1.0)
+                            if storm.is_set() else None)
+    router = in_process(sups)
+    front = RouterHTTPServer(router, port=0)
+    base = f"http://127.0.0.1:{front.port}"
+    probes, done = [], threading.Event()
+
+    def poll_front():
+        while not done.is_set():
+            code, _, body = _http(base, "/healthz")
+            probes.append((code, json.loads(body)["status"]))
+            done.wait(ROUTER_POLL_S)
+
+    poller = threading.Thread(target=poll_front)
+    poller.start()
+    rrs, t0 = run(router, faulty)
+    _wait(lambda: sups[0].engine._steps >= ROUTER_CRASH_STEP,
+          "r0's decode steps")
+    held = sups[0].busy_slots() + len(sups[0].scheduler)
+    storm.set()
+    chaos.current.crash_storm(1.0)
+    _wait(lambda: router.replicas()[0]["state"] == "ejected",
+          "r0's ejection")
+    outs, perf = finish("router_serve failover", rrs, t0, faulty)
+    done.set()
+    poller.join()
+    st = router.stats()
+    rows = {r["name"]: r for r in st["replicas"]}
+    cfg_r = router.config
+    cap = cfg_r.retry_amplification_cap * st["requests"] \
+        + cfg_r.retry_amplification_floor
+    k6 = _router_launches("router_serve failover", engines, L, "bfloat16")
+    retried = sum(rr.retries > 0 for rr in rrs)
+    check(sups[0].broken and chaos.injected["crash"] == 2,
+          f"router_serve: failover: breaker {sups[0].broken}, injected "
+          f"{chaos.injected}")
+    check(rows["r0"]["state"] == "ejected" and rows["r0"]["ejections"] == 1
+          and rows["r0"]["probe_failures"] >= cfg_r.probe_failures_to_eject
+          and rows["r1"]["state"] == "healthy",
+          f"router_serve: replicas after the storm {rows}")
+    check(retried >= 1 and 1 <= st["extra_attempts"] <= cap and
+          all(rr.replica == "r1" for rr in rrs if rr.retries),
+          f"router_serve: {retried} requests retried, {st['extra_attempts']}"
+          f" extra attempts against a cap of {cap}")
+    check(probes and set(probes) == {(200, "ok")},
+          f"router_serve: the router's /healthz read {sorted(set(probes))}")
+    front.stop()
+    router.stop(drain=True, timeout_s=60)
+    emit({"phase": "router_serve", "part": "failover",
+          "held_by_r0_at_storm": held, "retried_requests": retried,
+          "extra_attempts": st["extra_attempts"], "amplification_cap": cap,
+          "r0": {k: rows["r0"][k] for k in (
+              "state", "ejections", "probe_failures", "attempts")},
+          "healthz_probes": len(probes), **perf, "k6": k6,
+          "new_tokens_at_most": ROUTER_FAULT_TOKENS,
+          "equal_to_serve": same(outs, bf16_outputs), "card": kind})
+    del router, front, sups, chaos, rrs
+    free()
+
+    # 4. a poison request, armed on both replicas: quarantined after two
+    # crashes fleet-wide (its probe admitted alone), refused on resubmit,
+    # the other eleven complete
+    pi = len(requests) - 1            # the 48-token request
+    pp, pm = requests[pi]
+    fp = request_fingerprint(np.asarray(pp, np.int32),
+                             SamplingParams(max_new_tokens=pm))
+    sups = _router_fleet(model, shape, [{}, {}], engines)
+    chaoses = [SupervisedChaos(s, arm=lambda m: m.poison_fingerprint(fp))
+               for s in sups]
+    router = in_process(sups)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poison = router.submit(pp, max_new_tokens=pm)
+    _wait(lambda: sum(c.injected["poison"] for c in chaoses) >= 1,
+          "the poison's first crash")
+    others = [r for i, r in enumerate(faulty) if i != pi]
+    rrs = [router.submit(p, max_new_tokens=m) for p, m in others]
+    poison.result(timeout=HTTP_TIMEOUT)
+    outs, perf = finish("router_serve poison", rrs, t0, others)
+    fired = sum(c.injected["poison"] for c in chaoses)
+    hit = [i for i, s in enumerate(sups) if s.quarantined]
+    check(poison.status == "failed" and POISON_MARKER in poison.error and
+          fp in poison.error and fired == 2 and poison.retries == 0,
+          f"router_serve: poison ended {poison.status} ({poison.error}), "
+          f"fired {fired} times")
+    check(len(hit) == 1 and sups[hit[0]].quarantined == [fp] and
+          sups[hit[0]].supervisor_stats()["implicated"] == {fp: 2} and
+          sum(s.restarts for s in sups) == 2,
+          f"router_serve: quarantine {[s.supervisor_stats() for s in sups]}")
+    try:
+        router.submit(pp, max_new_tokens=pm)
+        refused = None
+    except PoisonedRequestError as e:
+        refused = e.fingerprint
+    check(refused == fp, f"router_serve: the resubmitted poison gave "
+                         f"{refused}")
+    k6 = _router_launches("router_serve poison", engines, L, "bfloat16")
+    router.stop(drain=True, timeout_s=60)
+    emit({"phase": "router_serve", "part": "poison", "fingerprint": fp,
+          "poison_request": pi, "crashes_fleet_wide": fired,
+          "restarts": [s.restarts for s in sups],
+          "implicated": sups[hit[0]].supervisor_stats()["implicated"],
+          "refused_on_resubmit": True, "innocents": len(rrs), **perf,
+          "k6": k6, "card": kind})
+    del router, sups, chaoses, rrs, poison
+    free()
+
+    # 5. over HTTP: two supervised engines behind ServingHTTPServer, two
+    # HTTPReplicas, the router's own front end
+    extra = list(np.random.RandomState(SEED + 15).randint(
+        1, cfg.vocab_size, ROUTER_POISON))
+    efp = request_fingerprint(np.asarray(extra, np.int32),
+                              SamplingParams(max_new_tokens=4))
+    sups = _router_fleet(model, shape, [{}, {}], engines)
+    chaoses = [SupervisedChaos(s, arm=lambda m: m.poison_fingerprint(efp))
+               for s in sups]
+    da.reset_counters()
+    for s in sups:
+        s.warmup()
+    check(_build.total_builds() == builds0,
+          "router_serve: a replica's warmup built a kernel library")
+    servers = [ServingHTTPServer(s, port=0) for s in sups]
+    router = Router([HTTPReplica(f"http://127.0.0.1:{h.port}", name=f"r{i}")
+                     for i, h in enumerate(servers)], RouterConfig(seed=0))
+    front = RouterHTTPServer(router, port=0)
+    base = f"http://127.0.0.1:{front.port}"
+
+    def completed(fams, replica):
+        return sum(s["value"] for s in
+                   fams["paddle_tpu_serving_requests_total"]["samples"]
+                   if s["labels"].get("outcome") == "completed" and
+                   s["labels"].get("replica") == replica)
+
+    def federated():
+        time.sleep(router.config.stats_refresh_s + 0.05)  # scrapes due
+        return exporters.parse_prometheus_text(
+            _http(base, "/metrics")[2].decode())
+
+    fams0 = federated()
+    probes, replica_states, done = [], [], threading.Event()
+
+    def poll_http():
+        while not done.is_set():
+            code, _, body = _http(base, "/healthz")
+            probes.append((code, json.loads(body)["status"]))
+            for h in servers:
+                replica_states.append(json.loads(_http(
+                    f"http://127.0.0.1:{h.port}", "/healthz")[2])["status"])
+            done.wait(ROUTER_POLL_S)
+
+    poller = threading.Thread(target=poll_http)
+    poller.start()
+    results = [None] * len(requests)
+    clients = [threading.Thread(target=_http_client, args=(
+        base, p, m, i % 2 == 1, results, i))
+        for i, (p, m) in enumerate(requests)]
+    t0 = time.perf_counter()
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join()
+    secs = time.perf_counter() - t0
+    done.set()
+    poller.join()
+    for i, ((p, m), res) in enumerate(zip(requests, results)):
+        rec = res.get("record") or {}
+        check(res.get("code") == 200 and rec.get("status") == "completed"
+              and len(rec.get("tokens", ())) == m,
+              f"router_serve http: request {i} answered {res}")
+        if res["streamed"] is not None:
+            check(res["streamed"] == rec["tokens"],
+                  f"router_serve http: request {i}'s stream differs from "
+                  f"its record")
+    https = [r["record"]["tokens"] for r in results]
+    gen = sum(map(len, https))
+    check(probes and set(probes) == {(200, "ok")} and
+          "stalled" not in replica_states,
+          f"router_serve http: router /healthz read {sorted(set(probes))}, "
+          f"the replicas {sorted(set(replica_states))}")
+    rows = json.loads(_http(base, "/replicas")[2])["replicas"]
+    check(sorted(r["name"] for r in rows) == ["r0", "r1"],
+          f"router_serve http: /replicas {rows}")
+    fams1 = federated()
+    # both replicas live in this process: each one's /metrics is the
+    # process registry, so each replica series rises by the whole
+    # traffic and the fleet roll-up by their sum (as in the JAX package)
+    rise = {r: completed(fams1, r) - completed(fams0, r)
+            for r in ("r0", "r1", "fleet")}
+    check(rise == {"r0": len(requests), "r1": len(requests),
+                   "fleet": 2 * len(requests)},
+          f"router_serve http: completed requests rose by {rise}")
+    slo = json.loads(_http(base, "/slo")[2])
+    check(set(slo["objectives"]) == {"availability", "goodput", "ttft_p95"}
+          and slo["observed"] >= len(requests),
+          f"router_serve http: /slo {slo}")
+    rid = results[0]["record"]["request_id"]
+    merged = json.loads(_http(base, f"/trace?request={rid}")[2])
+    lanes = [ev["args"]["name"] for ev in merged["traceEvents"]
+             if ev.get("ph") == "M" and ev["name"] == "process_name"]
+    check(f"router request {rid}" in lanes and
+          any(n.startswith("attempt ") for n in lanes),
+          f"router_serve http: merged trace lanes {lanes}")
+    k6 = _router_launches("router_serve http", engines, L, "bfloat16")
+    # the poisoned extra request: 400 quarantined mid-flight, then at
+    # the router's door
+    code, _, body = _http(base, "/generate", {
+        "prompt": [int(t) for t in extra], "max_new_tokens": 4})
+    q1 = json.loads(body)
+    code2, _, body2 = _http(base, "/generate", {
+        "prompt": [int(t) for t in extra], "max_new_tokens": 4})
+    q2 = json.loads(body2)
+    for c, q in ((code, q1), (code2, q2)):
+        check(c == 400 and q.get("quarantined") is True and
+              q.get("retriable") is False and q.get("fingerprint") == efp,
+              f"router_serve http: the poisoned request answered {c} {q}")
+    # the poison's last crash restarts its replica, and a drain that
+    # arrives during a restart reaches the dead engine (as in the JAX
+    # supervisor; ROADMAP C9): the fleet settles first
+    _wait(lambda: not any(s.restarting for s in sups),
+          "the poison's restart")
+    # SIGTERM: the preemption listener drains the fleet with four
+    # requests in flight
+    install_sigterm_drain(router)
+    drain_out = [None] * 4
+    clients = [threading.Thread(target=_http_client, args=(
+        base, p, HTTP_DRAIN_TOKENS, False, drain_out, i))
+        for i, (p, _) in enumerate(requests[:4])]
+    for c in clients:
+        c.start()
+    _wait(lambda: sum(s.busy_slots() + len(s.scheduler) for s in sups) >= 4,
+          "the drain's requests")
+    request_preemption()
+    for c in clients:
+        c.join()
+    _wait(lambda: router_health(router)[1]["status"] == "stopped",
+          "the fleet drain")
+    hcode, _, hbody = _http(base, "/healthz")
+    hstatus = json.loads(hbody)["status"]
+    uninstall_sigterm_drain(router)
+    clear_preemption()
+    uninstall_preemption_handler()
+    check(all(r["code"] == 200 and r["record"]["status"] == "completed"
+              and len(r["record"]["tokens"]) == HTTP_DRAIN_TOKENS
+              for r in drain_out),
+          f"router_serve http: the drained requests ended {drain_out}")
+    check(hcode == 503 and hstatus in ("draining", "stopped") and
+          all(s.draining or s.stopped for s in sups),
+          f"router_serve http: after SIGTERM /healthz {hcode} {hstatus}, "
+          f"replicas {[s.health()[1]['status'] for s in sups]}")
+    front.stop()
+    router.stop()
+    for h, s in zip(servers, sups):
+        h.stop()
+        s.stop()
+    http_row = {"seconds": secs, "generated_tokens": gen,
+                "tokens_per_s": gen / secs,
+                "ttft_s": _p50_p95([r["record"]["ttft_s"] for r in results]),
+                "tpot_s": _p50_p95([r["record"]["tpot_s"] for r in results]),
+                "client_seconds": _p50_p95([r["seconds"] for r in results])}
+    emit({"phase": "router_serve", "part": "http", "requests": len(requests),
+          "streamed": sum(r["streamed"] is not None for r in results),
+          "per_replica": {r: sum(x["record"]["replica"] == r
+                                 for x in results) for r in ("r0", "r1")},
+          **http_row, "k6": k6, "completed_rise": rise,
+          "healthz_probes": len(probes),
+          "replica_health_states": sorted(set(replica_states)),
+          "trace_lanes": lanes, "quarantined_answers": [code, code2],
+          "poison_restarts": [s.restarts for s in sups],
+          "sigterm": {"in_flight": 4, "healthz_after": [hcode, hstatus]},
+          "http_serve_single_engine": refs["http"],
+          "equal_to_serve": sum(a == b for a, b in zip(https, bf16_outputs)),
+          "card": kind})
+    del router, front, servers, sups, chaoses
+    free()
+
+    # 6. fp32 at full width and depth 2: the requests through a warm
+    # restart of r0 mid-decode (its suspects replayed alone on the new
+    # engine) and the breaker of r1 (mid-decode, then at the rebuilt
+    # engine's first step, which holds no request: nothing is implicated
+    # twice), whose requests fail over to r0; bit-equal to one engine
+    cfg2 = LlamaConfig.llama2_7b(dtype="float32")
+    cfg2.num_hidden_layers = 2
+    small = seeded_llama(cfg2, SEED, DEV, torch.float32).eval()
+    reqs32 = [(p, ROUTER_FP32_TOKENS) for p in prompts]
+    eng = ServingEngine(small, ServingConfig(**shape), device=DEV)
+    want = [eng.submit(p, max_new_tokens=m) for p, m in reqs32]
+    eng.run_until_idle()
+    want = [list(r.output_tokens) for r in want]
+    del eng
+
+    def crashes(*after):
+        """Arm engine generation g to crash after ``after[g]`` steps."""
+        gens = itertools.count()
+
+        def arm(m):
+            g = next(gens)
+            if g < len(after):
+                m.crash_after_steps(after[g])
+        return arm
+
+    sups = _router_fleet(small, shape, [{}, {"max_restarts": 1}], engines)
+    router = in_process(sups)
+    # armed just before the traffic: an idle loop steps too
+    chaos = [SupervisedChaos(sups[0], arm=crashes(12)),
+             SupervisedChaos(sups[1], arm=crashes(14, 0))]
+    rrs, t0 = run(router, reqs32)
+    _wait(lambda: sups[1].broken, "r1's breaker")
+    outs, perf = finish("router_serve fp32", rrs, t0, reqs32)
+    k6 = _router_launches("router_serve fp32", engines, 2, "float32")
+    equal = [a == b for a, b in zip(outs, want)]
+    check(all(equal), f"router_serve fp32: requests "
+                      f"{[i for i, e in enumerate(equal) if not e]} differ "
+                      f"from one engine's tokens")
+    injected = [c.injected["crash"] for c in chaos]
+    retried = sum(rr.retries > 0 for rr in rrs)
+    check(injected == [1, 2] and sups[0].restarts == 1 and
+          not sups[0].broken and sups[1].broken and retried >= 1 and
+          not (sups[0].quarantined or sups[1].quarantined),
+          f"router_serve fp32: injected {injected}, restarts "
+          f"{[s.restarts for s in sups]}, retries "
+          f"{[rr.retries for rr in rrs]}")
+    router.stop(drain=True, timeout_s=60)
+    emit({"phase": "router_serve", "part": "fp32 depth 2",
+          "requests": len(rrs), "equal_to_one_engine": sum(equal),
+          "restarts": [s.restarts for s in sups], "crashes": injected,
+          "retried_requests": retried,
+          "replicas_finishing": sorted({rr.replica for rr in rrs}),
+          **perf, "k6": k6, "card": kind})
+    del router, sups, chaos, rrs, small
+    free()
+    check(_build.total_builds() == builds0,
+          "router_serve: the phase built a kernel library")
+    emit({"phase": "router_serve", "part": "done",
+          "phase_seconds": time.perf_counter() - t_phase})
+    return router_launches
 
 
 def _full_accept(n_new, depth):
@@ -4304,7 +4923,8 @@ def conv_summary(conv_rows, infer_launches, resnet_train_launches):
 
 def summary(rows, serve_launches, gen_launches, flash_rows,
             train_launches, quant_rows, quant_launches, tree_rows,
-            spec_launches, gpt_rows, gpt_launches, http_launches):
+            spec_launches, gpt_rows, gpt_launches, http_launches,
+            router_launches):
     """One object per kernel, with the numbers of its main-path shape:
     for K1-K3 the training shape, for K4-K7 the decode step (bf16, group
     1 as in Llama-2-7B; int8 for K5/K7), for K8 the [2, 2] tree's verify
@@ -4313,7 +4933,8 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
     at a decode step of 8 slots. The decode kernels and K9 add
     ``gpt_launches`` (the GPT path's runs) and ``gpt``: the row at GPT-3
     1.3B's shape (K9: q_proj, 2048 x 2048, int8, M 8). K6 adds
-    ``http_launches``: its launches over the HTTP front end's run."""
+    ``http_launches``: its launches over the HTTP front end's run, and
+    ``router_launches``: over the two supervised replicas' router run."""
     out = []
     for name, (tag, replaces) in FLASH_META.items():
         mine = [r for r in flash_rows if r["name"] == name]
@@ -4433,6 +5054,8 @@ def summary(rows, serve_launches, gen_launches, flash_rows,
         entry["gpt_launches"] = m["gpt_launches"].get(name, 0)
         if name in http_launches:
             entry["http_launches"] = http_launches[name]
+        if name in router_launches:
+            entry["router_launches"] = router_launches[name]
         entry["gpt"] = {k: g[k] for k in (
             "B", "q_len", "M", "N", "K", "body", "ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by", "max_abs_err") if k in g}
@@ -4479,10 +5102,14 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "peaks": PEAKS})
 
+    # the script's wall time by stretch, printed before the kernels line
+    mark, timeline = part_timer()
+    t_script = time.perf_counter()
     t0 = time.perf_counter()
     _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": sorted(_build.SOURCES)})
+    mark("build")
 
     # ResNet-50: K10 and K11 against their plain versions, inference
     # (K10), the train step (K11) and the fp32 card-against-CPU check
@@ -4492,6 +5119,7 @@ def main(argv=None) -> int:
     resnet_parity_phase(kind)
     conv_kernels = conv_summary(conv_rows, infer_launches,
                                 resnet_train_launches)
+    mark("resnet")
 
     rng = np.random.RandomState(SEED)
     rows = kernel_phase(rng)
@@ -4503,6 +5131,7 @@ def main(argv=None) -> int:
     flash_rows = flash_kernel_phase(rng)
     # the threefry key chain and the samplers, card against CPU
     sample_phase()
+    mark("kernels")
 
     cfg = LlamaConfig.llama2_7b(dtype="bfloat16")
     t0 = time.perf_counter()
@@ -4516,7 +5145,7 @@ def main(argv=None) -> int:
     # rounding across 32 random layers moves logits by more than the 0.1
     # gap, so the same weights in fp32 carry the asserted check
     requests = traffic(rng, cfg.vocab_size)
-    serve_launches, bf16_outputs, bf16_tps = serve_phase(
+    serve_launches, bf16_outputs, bf16_tps, serve_perf = serve_phase(
         model, cfg, requests, kind, strict=False)
     gen_launches = generate_phase(model, cfg, requests, kind, strict=False)
     # beside the greedy decode iteration, one where every slot samples
@@ -4534,18 +5163,28 @@ def main(argv=None) -> int:
                           "sampled_outputs": {"bf16_sampled":
                                               sampled_outputs}}, kind)
     spec_profile_phase(model, requests, kind, plain_decode)
+    mark("llama bf16 serving")
     # the host serving stack: warmup + the loop thread, the HTTP front
     # end, drain, crash and stall, the cost of tracing
-    http_launches = http_serve_phase(model, cfg, requests, kind,
-                                     bf16_outputs, bf16_tps, plain_decode)
+    http_launches, http_perf = http_serve_phase(
+        model, cfg, requests, kind, bf16_outputs, bf16_tps, plain_decode)
+    mark("http_serve")
+    # above the engine: two supervised replicas behind the router, in
+    # process and over HTTP, restart, failover, quarantine, SIGTERM
+    router_launches = router_serve_phase(
+        model, cfg, requests, kind, bf16_outputs,
+        {"serve": serve_perf, **http_perf})
+    mark("router_serve")
     model.float()
     torch.cuda.empty_cache()
-    _, _, fp32_tps = serve_phase(model, cfg, requests, kind, strict=True)
+    _, _, fp32_tps, _ = serve_phase(model, cfg, requests, kind,
+                                    strict=True)
     generate_phase(model, cfg, requests, kind, strict=True)
     serve_sample_phase(model, cfg, requests, kind, strict=True,
                        greedy_tps=fp32_tps)
     del model
     torch.cuda.empty_cache()
+    mark("llama fp32 serving")
 
     # quantized serving: the same seeded weights converted to int8 (then
     # fp8) weight-only linears over int8 (fp8) KV blocks
@@ -4554,20 +5193,26 @@ def main(argv=None) -> int:
     quant_parity_phase(kind)
     spec_parity_phase(kind)
     rows += edge_phase(kind)
+    mark("quantized and speculative parity")
 
     train_launches = train_phase(kind)
     train_parity_phase(kind)
+    mark("training")
 
     # GPT-3 1.3B: the decode kernels and K9 at its shapes, its serving
     # lanes at full width, and the fp32 card-against-CPU checks
     gpt_rows = gpt_kernel_phase()
     gpt_requests, gpt_launches = gpt_serve_phase(kind)
     gpt_parity_phase(kind, gpt_requests)
+    mark("gpt")
+    emit({"phase": "timeline", "seconds": timeline,
+          "total_seconds": time.perf_counter() - t_script})
 
     emit({"kernels": summary(rows, serve_launches, gen_launches, flash_rows,
                              train_launches, quant_rows, quant_launches,
                              tree_rows, spec_launches, gpt_rows,
-                             gpt_launches, http_launches) + conv_kernels})
+                             gpt_launches, http_launches,
+                             router_launches) + conv_kernels})
     emit(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

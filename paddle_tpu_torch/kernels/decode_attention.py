@@ -63,6 +63,7 @@ import torch
 from ..quantization.intx import format_of_dtype, unpack_absmax
 from ._blocks import pick_block
 from ._build import load_library
+from ._counts import COUNT_LOCK, count as _count
 
 __all__ = ["flash_decode_attention", "flash_decode_attention_ref",
            "paged_flash_decode_attention", "paged_flash_decode_attention_ref",
@@ -137,15 +138,14 @@ LAUNCHES = {"flash_decode_attention": 0, "paged_flash_decode_attention": 0,
 BODY_LAUNCHES: Counter = Counter()
 DISPATCH_HITS: Counter = Counter()
 DISPATCH_FALLBACKS: Counter = Counter()
-
-
 def reset_counters() -> None:
     """Zero the launch counts and the dispatch hit/fallback counters."""
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    BODY_LAUNCHES.clear()
-    DISPATCH_HITS.clear()
-    DISPATCH_FALLBACKS.clear()
+    with COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        BODY_LAUNCHES.clear()
+        DISPATCH_HITS.clear()
+        DISPATCH_FALLBACKS.clear()
 
 
 def bundle_body(q_len: int, group: int, dtype,
@@ -228,9 +228,9 @@ def decode_dispatch(model: str, *, q_len: int, has_mask: bool,
     int8/fp8 store, counted under ``<model>_quant`` / ``quant_<reason>``)."""
     reason = _decline_reason(q_len, MAX_DECODE_Q_LEN, has_mask, dtype)
     if reason is None:
-        DISPATCH_HITS[model + ("_quant" if quantized else "")] += 1
+        _count(DISPATCH_HITS, model + ("_quant" if quantized else ""))
         return True
-    DISPATCH_FALLBACKS[("quant_" if quantized else "") + reason] += 1
+    _count(DISPATCH_FALLBACKS, ("quant_" if quantized else "") + reason)
     return False
 
 
@@ -242,11 +242,11 @@ def paged_decode_dispatch(model: str, *, q_len: int, has_mask: bool,
     ``paged_[quant_]<reason>``."""
     reason = _decline_reason(q_len, MAX_PAGED_Q_LEN, has_mask, dtype)
     if reason is None:
-        DISPATCH_HITS[model + "_paged" + ("_quant" if quantized else "")] \
-            += 1
+        _count(DISPATCH_HITS,
+               model + "_paged" + ("_quant" if quantized else ""))
         return True
-    DISPATCH_FALLBACKS[("paged_quant_" if quantized else "paged_")
-                       + reason] += 1
+    _count(DISPATCH_FALLBACKS,
+           ("paged_quant_" if quantized else "paged_") + reason)
     return False
 
 
@@ -278,7 +278,7 @@ def spec_verify_eligibility(spec_k: int, dtype, spec_tree=None):
         reason = "dtype"
     if reason is None:
         return True, None
-    DISPATCH_FALLBACKS[prefix + reason] += 1
+    _count(DISPATCH_FALLBACKS, prefix + reason)
     return False, reason
 
 
@@ -506,8 +506,8 @@ def _launch(name: str, q, k, v, ks, vs, pos, bt, max_len: int, bs: int,
         float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
-    LAUNCHES[name] += 1
-    BODY_LAUNCHES[f"{name}/{plan['body']}"] += 1
+    _count(LAUNCHES, name)
+    _count(BODY_LAUNCHES, f"{name}/{plan['body']}")
     return out
 
 

@@ -28,6 +28,7 @@ import torch
 
 from ..quantization.intx import format_of_dtype
 from ._build import load_library
+from ._counts import COUNT_LOCK, count as _count
 
 __all__ = ["quant_matmul", "quant_matmul_ref", "quant_matmul_dispatch",
            "qmm_body", "qmm_plan", "qmm_items", "gemv_plan", "gemv_items",
@@ -40,14 +41,13 @@ LAUNCHES = {"quant_matmul": 0}
 BODY_LAUNCHES: Counter = Counter()
 DISPATCH_HITS: Counter = Counter()
 DISPATCH_FALLBACKS: Counter = Counter()
-
-
 def reset_counters() -> None:
     """Zero the launch counts and the dispatch hit/fallback counters."""
-    LAUNCHES["quant_matmul"] = 0
-    BODY_LAUNCHES.clear()
-    DISPATCH_HITS.clear()
-    DISPATCH_FALLBACKS.clear()
+    with COUNT_LOCK:
+        LAUNCHES["quant_matmul"] = 0
+        BODY_LAUNCHES.clear()
+        DISPATCH_HITS.clear()
+        DISPATCH_FALLBACKS.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -220,9 +220,9 @@ def quant_matmul_dispatch(*, dtype, fmt: str) -> bool:
         # forward-only kernel: quantized weights are a serving artifact
         reason = "grad_mode"
     if reason is None:
-        DISPATCH_HITS[fmt] += 1
+        _count(DISPATCH_HITS, fmt)
         return True
-    DISPATCH_FALLBACKS[reason] += 1
+    _count(DISPATCH_FALLBACKS, reason)
     return False
 
 
@@ -296,6 +296,6 @@ def quant_matmul(x, qweight, scale):
         if rc != 0:
             raise RuntimeError(f"quant_matmul: kernel launch failed "
                                f"(cudaError {rc})")
-        LAUNCHES["quant_matmul"] += 1
-        BODY_LAUNCHES[f"quant_matmul/{body}"] += 1
+        _count(LAUNCHES, "quant_matmul")
+        _count(BODY_LAUNCHES, f"quant_matmul/{body}")
     return out.reshape(lead + (N,))

@@ -14,8 +14,11 @@ Layout:
                   host-side only: no event reads a device tensor),
                   Chrome-trace + JSONL export, the flight-recorder ring
                   + crash dumps, streaming latency ``Digest``s.
-- ``fleet``:      the traceparent helpers a router propagates trace
-                  ids with.
+- ``fleet``:      the fleet plane a router reads: traceparent
+                  propagation, the catapult merge, metric federation
+                  (``FleetMetricsAggregator``), multi-window SLO burn
+                  rates (``SLOTracker``), the brownout ladder and the
+                  robust straggler z-score (``mad_zscores``).
 
 The JAX package's ``recompile``, ``telemetry`` and ``perf`` modules
 (XLA compile attribution, per-step telemetry, the cost/roofline ledger)
@@ -40,8 +43,11 @@ from .exporters import (RotatingJsonlSink, parse_prometheus_text,
                         prometheus_text, render_families, resolve_sink_path,
                         start_http_server, stop_http_server,
                         write_jsonl_snapshot)
-from .fleet import (TRACEPARENT_HEADER, attempt_trace_id, format_traceparent,
-                    parse_traceparent, traceparent_of)
+from .fleet import (BROWNOUT_LEVELS, FLEET_REPLICA_LABEL, TRACEPARENT_HEADER,
+                    BrownoutController, FleetMetricsAggregator, SLOConfig,
+                    SLOTracker, attempt_trace_id, format_traceparent,
+                    mad_zscores, merge_catapult, parse_traceparent,
+                    traceparent_of)
 from .metrics import (_ENABLED, DEFAULT_BUCKETS, DEFAULT_QUANTILES, Counter,
                       Gauge, Histogram, MetricsRegistry, Summary, counter,
                       gauge, get_registry, histogram, summary)
@@ -60,8 +66,10 @@ __all__ = [
     "tracing", "span", "instant", "trace_context", "chrome_trace",
     "flight_dump", "register_state_provider", "Digest",
     "enable_tracing", "disable_tracing", "tracing_enabled",
-    "fleet", "TRACEPARENT_HEADER", "attempt_trace_id",
-    "format_traceparent", "parse_traceparent", "traceparent_of",
+    "fleet", "FleetMetricsAggregator", "SLOConfig", "SLOTracker",
+    "BrownoutController", "BROWNOUT_LEVELS", "FLEET_REPLICA_LABEL",
+    "TRACEPARENT_HEADER", "attempt_trace_id", "format_traceparent",
+    "parse_traceparent", "traceparent_of", "mad_zscores", "merge_catapult",
     "snapshot", "enable", "disable", "enabled",
 ]
 

@@ -927,11 +927,22 @@ class ServingEngine:
 
     def _admit(self):
         """Fill every free slot FCFS from the queue. Admission only claims
-        blocks and queues the chunk job."""
+        blocks and queues the chunk job.
+
+        A quarantine probe (a crash suspect a supervisor requeued) runs
+        alone: it is admitted only into an idle pool, nothing is admitted
+        beside it, and while slots are busy it waits at the queue front,
+        holding everything behind it. A repeat crash then implicates one
+        request, not its co-runners."""
+        if any(r is not None and r.quarantine_probe for r in self._slot_req):
+            return
         for slot in range(self.config.max_slots):
             while self._slot_req[slot] is None:
                 req = self.scheduler.pop_ready()
                 if req is None:
+                    return
+                if req.quarantine_probe and self.busy_slots():
+                    self.scheduler.requeue(req)
                     return
                 try:
                     self._begin_prefill(req, slot)
@@ -945,6 +956,9 @@ class ServingEngine:
                     _sm.requests_total.labels("failed").inc()
                     self._outcomes["failed"] = \
                         self._outcomes.get("failed", 0) + 1
+                else:
+                    if req.quarantine_probe:
+                        return  # solo: nothing is admitted beside it
 
     # -- the iteration -----------------------------------------------------------
     def step(self) -> bool:
@@ -1367,6 +1381,15 @@ class ServingEngine:
             self._jobs[slot] = None
             running.append(req)
         return running, self.scheduler.detach_all()
+
+    def _release_device_state(self):
+        """Drop the KV pools of a crashed engine that a supervisor has
+        replaced (its requests were exported; it never steps again), so
+        a warm restart does not keep a dead pool alive on the device."""
+        with self._step_lock:
+            self._pools = []
+            if self.spec:
+                self._dpools = []
 
     @property
     def crashed(self) -> Optional[str]:

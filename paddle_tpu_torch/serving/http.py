@@ -45,8 +45,10 @@ and ``/debug/requests`` read host state, never waiting for the step.
 ``ServingHTTPServer`` is the instance API (one per engine, any number
 per process); ``start_serving_http_server`` /
 ``stop_serving_http_server`` keep one default server per process. The
-JAX module's ``/debug/memory`` (the perf HBM ledger) and its
-quarantined-request branch (the supervisor) come with those modules.
+JAX module's ``/debug/memory`` (the perf HBM ledger) waits for the
+perf module. A quarantined fingerprint (``PoisonedRequestError`` from a
+supervisor) answers ``400`` with ``{"quarantined": true, "fingerprint":
+..., "retriable": false}``.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ from ..observability import tracing as _tracing
 from . import metrics as _sm
 from .engine import EngineStoppedError
 from .scheduler import QueueFullError
+from .supervisor import PoisonedRequestError
 
 __all__ = ["ServingHTTPServer", "start_serving_http_server",
            "stop_serving_http_server", "retry_after_header"]
@@ -217,6 +220,17 @@ class ServingHTTPServer:
                 except EngineStoppedError as e:
                     self._json(503, {"error": str(e),
                                      "status": engine.health()[1]["status"]})
+                    return
+                except PoisonedRequestError as e:
+                    # a quarantined fingerprint (supervised engines): an
+                    # actionable 400 that names the fingerprint and says
+                    # not to retry. It precedes the ValueError arm: it IS
+                    # a ValueError, so unsupervised surfaces still treat
+                    # it as a plain bad request
+                    self._json(400, {"error": str(e),
+                                     "quarantined": True,
+                                     "fingerprint": e.fingerprint,
+                                     "retriable": False})
                     return
                 except (TypeError, ValueError) as e:
                     self._json(400, {"error": f"bad request: {e}"})

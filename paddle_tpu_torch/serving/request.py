@@ -160,7 +160,13 @@ class Request:
         # tokens fold into the next prefill and the final select's
         # re-derived token is skipped, never re-delivered
         self._resume = None
+        # supervisor quarantine state: the lazily computed work
+        # fingerprint (identity across retries, replicas and restarts)
+        # and the solo-probe flag: a crash suspect the supervisor
+        # requeues is admitted alone, so a repeat crash implicates it
+        # and no co-runner
         self._fingerprint: Optional[str] = None
+        self.quarantine_probe = False
         self._done = threading.Event()
         self._stream_q: "queue.Queue" = queue.Queue()
 

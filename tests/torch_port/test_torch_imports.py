@@ -46,7 +46,8 @@ def test_importing_the_port_leaves_jax_out():
             "paddle_tpu_torch.generation, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.kernels, "
             "paddle_tpu_torch.kernels.flash_attention, "
-            "paddle_tpu_torch.kernels.quant_matmul, paddle_tpu_torch.nn, "
+            "paddle_tpu_torch.kernels.quant_matmul, "
+            "paddle_tpu_torch.kernels._counts, paddle_tpu_torch.nn, "
             "paddle_tpu_torch.nn.quant, paddle_tpu_torch.quantization, "
             "paddle_tpu_torch.quantization.intx, "
             "paddle_tpu_torch.quantization.observers, "
@@ -66,7 +67,13 @@ def test_importing_the_port_leaves_jax_out():
             "paddle_tpu_torch.serving.engine, "
             "paddle_tpu_torch.serving.request, "
             "paddle_tpu_torch.serving.scheduler, "
-            "paddle_tpu_torch.serving.metrics; "
+            "paddle_tpu_torch.serving.metrics, "
+            "paddle_tpu_torch.serving.supervisor, "
+            "paddle_tpu_torch.serving.router, "
+            "paddle_tpu_torch.serving.router_http, "
+            "paddle_tpu_torch.fault_tolerance, "
+            "paddle_tpu_torch.fault_tolerance.metrics, "
+            "paddle_tpu_torch.fault_tolerance.preemption; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; "
             "assert not bad, bad")
@@ -158,3 +165,17 @@ def test_chip_smoke_fails_alone(tmp_path):
     r = _run_smoke(str(tmp_path))
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_supervisor_defaults_to_cuda(monkeypatch):
+    """A supervisor passes its ``device`` to every engine it builds:
+    ``None`` resolves to CUDA like the engine's own default."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import EngineSupervisor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EngineSupervisor(model, max_slots=1, max_len=64)
+    sup = EngineSupervisor(model, device="cpu", max_slots=1, max_len=64)
+    assert sup.engine.device.type == "cpu"

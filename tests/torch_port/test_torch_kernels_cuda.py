@@ -1405,3 +1405,67 @@ def test_started_engine_on_the_card_equals_run_until_idle():
     assert {s[0] for s in seen} == {"_chunk", "_step"}
     assert not any(any(s[1:]) for s in seen), seen
     assert eng.health()[1]["status"] == "stopped"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crash_at", [3, 8])
+def test_router_over_supervised_engines_on_the_card(crash_at):
+    """Two supervised small Llama engines on the card behind a
+    ``Router``, r0's engine crashed once mid-traffic and restarted by its
+    supervisor: every request's tokens equal ``run_until_idle`` on one
+    engine, and K6 launched exactly layers x (decode steps + prefill
+    chunks) of every engine that lived plus one chunk and one step a
+    layer for each warmup. fp32: the restart replays the generated
+    tokens through prefill chunks, whose K/V round differently from the
+    decode steps' in bf16 (``chip_smoke.py``'s bf16 ``router_serve``
+    restart reports its equality; its fp32 part asserts it)."""
+    require_cuda()
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import (EngineSupervisor, LocalReplica,
+                                          Router, RouterConfig,
+                                          ServingEngine, SupervisedChaos)
+
+    torch.manual_seed(0)
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                           max_position_embeddings=256)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.float32).eval()
+    rng = np.random.RandomState(15)
+    prompts = [rng.randint(1, cfg.vocab_size, n) for n in (5, 40, 70, 9, 33,
+                                                            17)]
+    params = [dict(max_new_tokens=12), dict(max_new_tokens=20),
+              dict(max_new_tokens=9, do_sample=True, top_k=20, seed=4),
+              dict(max_new_tokens=15), dict(max_new_tokens=16),
+              dict(max_new_tokens=10)]
+    kw = dict(max_slots=2, max_len=128, block_size=16, prefill_chunk=32)
+    sync = ServingEngine(model, device="cuda", **kw)
+    reqs = [sync.submit(p, **pk) for p, pk in zip(prompts, params)]
+    sync.run_until_idle()
+    want = [r.output_tokens for r in reqs]
+
+    engines = []
+    sups = [EngineSupervisor(model, device="cuda", **kw) for _ in range(2)]
+    for s in sups:
+        engines.append(s.engine)
+        s.add_rebuild_hook(engines.append)
+    tda.reset_counters()
+    router = Router([LocalReplica(s, f"r{i}") for i, s in enumerate(sups)],
+                    RouterConfig(seed=0))
+    try:
+        # armed just before the traffic: an idle loop steps too
+        chaos = SupervisedChaos(sups[0])
+        chaos.current.crash_after_steps(crash_at)
+        rrs = [router.submit(p, **pk) for p, pk in zip(prompts, params)]
+        got = [rr.result(timeout=120) for rr in rrs]
+        assert got == want
+        assert chaos.injected["crash"] == 1 and sups[0].restarts == 1
+        assert all(rr.retries == 0 for rr in rrs)
+    finally:
+        router.stop(drain=True, timeout_s=60)
+    L = cfg.num_hidden_layers
+    steps = sum(e.stats()["steps"] for e in engines)
+    chunks = sum(e.stats()["prefill_chunks"] for e in engines)
+    warm = sum(e.warmed_up for e in engines)
+    assert (len(engines), warm) == (3, 3)
+    assert tda.LAUNCHES["paged_flash_decode_attention"] == \
+        L * (steps + chunks + 2 * warm)
+    assert engines[0]._pools == []  # the dead engine's pools went
